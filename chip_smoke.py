@@ -10,12 +10,20 @@ Phases, each of which raises (exit code != 0) on failure:
 2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (FAST+Harris on 16 images at each of
-   the three pyramid levels of 1920x1080; Hamming on 8 frames of 48x48),
-   with median CUDA-event times of kernel and plain version.
+   the three pyramid levels of 1920x1080, bit-identical on the interior,
+   plus ragged and batch shapes; Hamming on the 16 frame matrices of 48x48
+   one chunk launches at once, exact), then each one's time: N launches
+   back to back between one pair of CUDA events, divided by N, after a
+   warm-up, with the device kept busy while the host enqueues them
+   (FAST+Harris: the 50 MB L2 flushed before every launch, as the time of
+   N flush+kernel pairs less that of N flushes), beside its bound (the
+   larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s).
+   Then a torch.profiler breakdown of one front-end chunk's device time.
 4. slice: ``run_sequence`` on a rendered 20 s synthetic dive (100 stereo
    keyframes at 1920x1080, 200 landmarks, 200 Hz IMU) with the dense LM;
-   checks the launch counts of both kernels, the LM's error decrease, and
-   the trajectory error against ground truth and the DVL odometry.
+   checks the launch counts of both kernels (fast_harris once per level
+   per chunk, hamming once per chunk), the LM's error decrease, and the
+   trajectory error against ground truth and the DVL odometry.
 
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -26,7 +34,7 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
+import os
 import subprocess
 import sys
 import time
@@ -34,34 +42,63 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PLAIN_REPS = 5
-KERNEL_REPS = 20
-# Harris tolerance (relative to max|R|): the JAX package's own for its
-# kernel; the CUDA kernel keeps the plain version's order of float
-# operations, so it is expected to agree exactly.
-HARRIS_RTOL = 2e-5
-BORDER = 5  # versions differ within 5 px of the border (wrap vs clamp)
+KERNEL_REPS = 50
+HOST_AHEAD_CYCLES = 50_000_000  # ~28 ms of device spin while the host enqueues
+FLUSH_BYTES = 96 << 20          # > the H100's 50 MB L2
+# Card peaks the bounds use (NVIDIA's H100 SXM data sheet): HBM bytes/s and
+# fp32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float operations per pixel of FAST+Harris: Sobel 15, vertical and
+# horizontal 7-sums 36, det/trace/response 7, FAST thresholds 2 and
+# compares 32.
+FAST_HARRIS_OPS_PER_PX = 92
+# The CUDA kernel keeps the plain version's order of float operations, so
+# it must agree with it exactly (tolerance 0) on pixels at least BORDER px
+# inside the border, where the versions differ (wrap vs clamp).
+BORDER = 5
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median over ``reps`` of one call's device time, by CUDA events."""
+def cuda_ms(fn, reps: int, flush=None) -> float:
+    """Device ms of one call of ``fn``: ``reps`` calls back to back between
+    one pair of CUDA events, divided by ``reps``, after a warm-up call. A
+    spin kernel first keeps the device busy while the host enqueues them,
+    so host overhead between launches is not timed. With ``flush``: the
+    time of ``reps`` (flush, fn) pairs less that of ``reps`` flushes."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    def run(body) -> float:
+        body()
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
         start.record()
-        fn()
+        for _ in range(reps):
+            body()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / reps
+
+    if flush is None:
+        return run(fn)
+
+    def both():
+        flush()
+        fn()
+
+    return run(both) - run(flush)
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """(bound in ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operations over the fp32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def textured_images(shape, seed: int):
@@ -87,8 +124,8 @@ def textured_images(shape, seed: int):
 
 
 def check_fast_harris(batches) -> dict:
-    """Kernel vs plain version on every batch; corners exact and Harris
-    within HARRIS_RTOL * max|R| on the interior."""
+    """Kernel vs plain version on every batch: bool corners, and corners
+    and Harris bit-identical on the interior."""
     import torch
 
     from uslam_tpu_torch.frontend import kernels
@@ -99,14 +136,14 @@ def check_fast_harris(batches) -> dict:
         cp, hp = kernels.fast_harris_plain(imgs, 10.0)
         torch.cuda.synchronize()
         inner = (slice(None), slice(BORDER, -BORDER), slice(BORDER, -BORDER))
-        n_diff = int(((ck[inner] != 0) != (cp[inner] != 0)).sum())
+        n_diff = int((ck[inner] != cp[inner]).sum())
         err = float((hk[inner] - hp[inner]).abs().max())
-        scale = float(hp[inner].abs().max()) + 1e-9
-        n_corners = int((cp[inner] != 0).sum())
+        n_corners = int(cp[inner].sum())
         log(f"  fast_harris {label} {tuple(imgs.shape)}: corners={n_corners} "
-            f"corner_mismatch={n_diff} harris_max_abs_err={err!r} "
-            f"(rel {err / scale!r})")
-        if n_diff or err > HARRIS_RTOL * scale:
+            f"dtype={ck.dtype} corner_mismatch={n_diff} harris_max_abs_err={err!r}")
+        if ck.dtype != torch.bool or cp.dtype != torch.bool:
+            raise AssertionError(f"fast_harris corners are {ck.dtype} / {cp.dtype}, not bool")
+        if n_diff or err != 0.0:
             raise AssertionError(f"fast_harris disagrees with its plain version on {label}")
         worst_err = max(worst_err, err)
     return {"max_abs_err": worst_err}
@@ -130,6 +167,72 @@ def check_hamming(pairs) -> dict:
             raise AssertionError(f"hamming disagrees with its plain version on {label}")
         worst_err = max(worst_err, err)
     return {"max_abs_err": float(worst_err)}
+
+
+def sass_loop_summary(lib_path: str, kernel: str = "fast_harris_kernel") -> str:
+    """Static instruction count of ``kernel``'s longest loop in the built
+    library (cuobjdump -sass), by opcode class: what the kernel issues per
+    iteration, to hold against the card's issue rate."""
+    import re
+    from collections import Counter
+
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not cuobjdump.exists():
+        return "not measured (no cuobjdump)"
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass) if kernel in f.split("\n", 1)[0])
+    code = [(int(m.group(1), 16), m.group(2).strip())
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = [(int(m.group(1), 16), off) for off, ins in code
+             if (m := re.search(r"BRA\s.*?0x([0-9a-f]+)", ins)) and int(m.group(1), 16) < off]
+    lo, hi = max(loops, key=lambda t: t[1] - t[0])
+    ops = [re.sub(r"^@!?U?P[T0-9]\s+", "", ins).split()[0] for off, ins in code if lo <= off <= hi]
+    classes = Counter(
+        "fp32" if op.startswith(("FADD", "FMUL", "FFMA")) else
+        "compare" if op.startswith("FSETP") else
+        "move" if op.startswith(("MOV", "IMAD.MOV")) else
+        "shared" if op.startswith(("LDS", "STS")) else
+        "global" if op.startswith(("LDG", "STG")) else "integer/control"
+        for op in ops
+    )
+    return f"{len(ops)} instructions in the loop body: {dict(classes)}"
+
+
+def profile_chunk(seq, cfg, top: int = 8) -> None:
+    """Where one front-end chunk's device time goes: torch.profiler over
+    ``StereoFrontend.process_chunk`` on the second chunk of ``seq`` (the
+    first one warms up), device time summed by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from uslam_tpu_torch.frontend.tracker import StereoFrontend
+
+    c = cfg.frontend.offline_chunk
+    fe = StereoFrontend(cfg.camera, cfg.frontend, device="cuda")
+    chunks = [slice(0, c), slice(c, 2 * c)]
+    args = [(seq.images_left[sl], seq.images_right[sl], seq.image_t[sl]) for sl in chunks]
+    fe.process_chunk(*args[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fe.process_chunk(*args[1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels and copies), less the profiler's own
+    # buffer requests; operator-level rows would count each kernel twice.
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer"):
+            acc = per_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    device_ms = sum(ms for ms, _ in per_name.values())
+    log(f"front-end chunk profile: wall {wall_ms!r} ms, device {device_ms!r} ms "
+        f"(busy {device_ms / wall_ms!r})")
+    for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {name[:70]}: {ms!r} ms device, {n} calls")
 
 
 def main() -> int:
@@ -171,6 +274,7 @@ def main() -> int:
     for line in kernels.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    log(f"  fast_harris SASS: {sass_loop_summary(kernels.load()._name)}")
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = UslamConfig(solver=SolverConfig(linear_solver="dense"))
@@ -191,31 +295,58 @@ def main() -> int:
     ]
 
     log("kernels:")
+    ragged = [(3, 57, 90), (1, 71, 250), (48, 270, 480)]
     fh = check_fast_harris(
         [(f"rendered L{i}", im) for i, im in enumerate(rendered_levels)]
         + [(f"textured L{i}", im) for i, im in enumerate(textured_levels)]
+        + [("textured", textured_images(shape, 3 + n)) for n, shape in enumerate(ragged)]
     )
-    fh_ms = [cuda_ms(lambda im=im: kernels.fast_harris(im, 10.0), KERNEL_REPS)
-             for im in rendered_levels]
-    fh_plain_ms = [cuda_ms(lambda im=im: kernels.fast_harris_plain(im, 10.0), PLAIN_REPS)
-                   for im in rendered_levels]
-    for im, a, b in zip(rendered_levels, fh_ms, fh_plain_ms):
-        log(f"  fast_harris {tuple(im.shape)}: kernel {a!r} ms, plain {b!r} ms")
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fh_ms, fh_bound, fh_plain_ms = [], [], []
+    for im in rendered_levels:
+        fh_ms.append(cuda_ms(lambda im=im: kernels.fast_harris(im, 10.0), KERNEL_REPS,
+                             flush=flush_buf.zero_))
+        fh_plain_ms.append(cuda_ms(lambda im=im: kernels.fast_harris_plain(im, 10.0), PLAIN_REPS))
+        fh_bound.append(bound_ms(im.numel() * 9, im.numel() * FAST_HARRIS_OPS_PER_PX))
+        b_ms, b_by = fh_bound[-1]
+        log(f"  fast_harris {tuple(im.shape)} (L2 flushed, strip rows "
+            f"{kernels.load().uslam_fast_harris_strip_rows(*im.shape)}): kernel {fh_ms[-1]!r} ms, "
+            f"bound {b_ms!r} ms ({b_by}: 9 B/px), share {b_ms / fh_ms[-1]!r}, "
+            f"plain {fh_plain_ms[-1]!r} ms")
+    fh_bound_ms = sum(b for b, _ in fh_bound)
+    log(f"  fast_harris per chunk: kernel {sum(fh_ms)!r} ms, bound {fh_bound_ms!r} ms, "
+        f"share {fh_bound_ms / sum(fh_ms)!r}, plain {sum(fh_plain_ms)!r} ms")
 
+    # The chunk's one Hamming launch: rows 0..C-1 left vs right, rows
+    # C..2C-1 left vs previous left (the tracker's layout).
     kp = extract_orb_batch(rendered, cfg.frontend)
-    real = (kp.desc[0::2].contiguous(), kp.desc[1::2].contiguous())
+    left, right = kp.desc[0::2], kp.desc[1::2]
+    prev = torch.cat([torch.zeros_like(left[:1]), left[:-1]])
+    real = (torch.cat([left, left]), torch.cat([right, prev]))
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rand = tuple(
-        torch.randint(-2**31, 2**31 - 1, (chunk, cfg.frontend.max_features, 8),
-                      generator=gen, device="cuda", dtype=torch.int32)
-        for _ in range(2)
-    )
-    hm = check_hamming([("random", rand), ("rendered descriptors", real)])
+
+    def rand_desc(b, n):
+        return torch.randint(-2**31, 2**31 - 1, (b, n, 8), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    hm = check_hamming([
+        ("random", (rand_desc(2 * chunk, cfg.frontend.max_features),
+                    rand_desc(2 * chunk, cfg.frontend.max_features))),
+        ("ragged", (rand_desc(3, 70), rand_desc(3, 130))),
+        ("rendered descriptors", real),
+    ])
     hm_ms = cuda_ms(lambda: kernels.hamming(*real), KERNEL_REPS)
     hm_plain_ms = cuda_ms(lambda: kernels.hamming_plain(*real), KERNEL_REPS)
-    log(f"  hamming {tuple(real[0].shape)}: kernel {hm_ms!r} ms, plain {hm_plain_ms!r} ms")
-    del rendered, rendered_levels, textured_levels, kp
+    n_dist = real[0].shape[0] * real[0].shape[1] * real[1].shape[1]
+    hm_bound, hm_bound_by = bound_ms(
+        (real[0].numel() + real[1].numel()) * 4 + n_dist * 4, n_dist * 8 * 3
+    )
+    log(f"  hamming {tuple(real[0].shape)} x {tuple(real[1].shape)}: kernel {hm_ms!r} ms, "
+        f"bound {hm_bound!r} ms ({hm_bound_by}), share {hm_bound / hm_ms!r}, "
+        f"plain {hm_plain_ms!r} ms")
+    del rendered, rendered_levels, textured_levels, kp, real, flush_buf
     torch.cuda.empty_cache()
+    profile_chunk(seq, cfg)
 
     # ---- 4. the slice: run_sequence on the card ----------------------------
     n_frames = len(seq.image_t)
@@ -234,7 +365,7 @@ def main() -> int:
     n_lm_obs = int(torch.unique(s.lm_idx[s.mask > 0]).numel())
     log("slice:")
     log(f"  launches: {launches} expected fast_harris={n_chunks * levels} "
-        f"hamming={2 * n_chunks} ({n_chunks} chunks of {chunk}, {levels} levels)")
+        f"hamming={n_chunks} ({n_chunks} chunks of {chunk}, {levels} levels)")
     log(f"  frontend: {m['frontend_frames']} frames in {m['frontend_seconds']!r} s "
         f"= {m['frontend_frames'] / m['frontend_seconds']!r} frames/s")
     log(f"  pack: {m['pack_seconds']!r} s; solve: {m['solve_seconds']!r} s, "
@@ -247,7 +378,7 @@ def main() -> int:
 
     checks = {
         "fast_harris launched once per level per chunk": launches["fast_harris"] == n_chunks * levels,
-        "hamming launched twice per chunk": launches["hamming"] == 2 * n_chunks,
+        "hamming launched once per chunk": launches["hamming"] == n_chunks,
         "every frame went through the front end": m["frontend_frames"] == n_frames,
         "trajectory shape and finite": traj.shape == (m["num_poses"], 3)
         and bool(np.isfinite(traj).all()),
@@ -269,19 +400,24 @@ def main() -> int:
             {
                 "name": "fast_harris", "route": "cuda",
                 "source": "uslam_tpu_torch/csrc/fast_harris.cu",
-                "replaces": "uslam_tpu/frontend/pallas_kernels.py:171",
+                "replaces": "uslam_tpu/frontend/pallas_kernels.py:67",
                 "launches": launches["fast_harris"],
                 "max_abs_err": fh["max_abs_err"],
                 # One chunk's worth: the three pyramid levels of 16 images.
                 "ms": sum(fh_ms), "plain_ms": sum(fh_plain_ms),
+                "bound_ms": fh_bound_ms, "bound_by": fh_bound[0][1],
+                "share": fh_bound_ms / sum(fh_ms),
+                "library_ms": None,  # no PyTorch call computes FAST-9 + Harris
             },
             {
                 "name": "hamming", "route": "cuda",
                 "source": "uslam_tpu_torch/csrc/hamming.cu",
-                "replaces": "uslam_tpu/frontend/pallas_kernels.py:251",
+                "replaces": "uslam_tpu/frontend/pallas_kernels.py:229",
                 "launches": launches["hamming"],
                 "max_abs_err": hm["max_abs_err"],
                 "ms": hm_ms, "plain_ms": hm_plain_ms,
+                "bound_ms": hm_bound, "bound_by": hm_bound_by, "share": hm_bound / hm_ms,
+                "library_ms": None,  # no PyTorch call computes packed-word Hamming
             },
         ]
     }

@@ -103,6 +103,44 @@ def test_stereo_and_temporal_matching_match_jax():
     assert n_stereo >= 20 and n_temporal >= 10
 
 
+def test_chunk_matches_one_launch_equals_separate_calls_and_jax():
+    """The chunk's single (2C, K, 8) Hamming call gives the same Matches as
+    separate stereo_match / match_descriptors calls, and as the JAX
+    package's match functions on the same numpy descriptors."""
+    cfg = tconfig.FrontendConfig(pyramid_levels=1, max_features_per_cell=6)
+    pairs = [_stereo_pair(192, 256, seed=s) for s in (3, 3, 6, 7)]
+    lefts = [p[0] for p in pairs]
+    lefts[1] = nd_shift(lefts[0], (1, 3), order=1, mode="nearest")  # real temporal matches
+    imgs = np.stack([im for l, (_, r) in zip(lefts, pairs) for im in (l, r)]).astype(np.float32)
+    kp = torb.extract_orb_batch(torch.from_numpy(imgs), cfg)
+    kp_l = torb.Keypoints(*(a[2::2] for a in kp))          # the chunk: pairs 1..3
+    kp_r = torb.Keypoints(*(a[3::2] for a in kp))
+    prev = torb.Keypoints(*(a[0] for a in kp))              # left image of pair 0
+    sm, tm = ttracker.chunk_matches(kp_l, kp_r, prev, cfg)
+
+    gates = dict(max_distance=cfg.match_max_distance, ratio=cfg.match_ratio)
+    sgates = dict(gates, max_v_diff=cfg.stereo_max_v_diff, min_disparity=cfg.stereo_min_disparity)
+    pdesc = torch.cat([prev.desc[None], kp_l.desc[:-1]])
+    pmask = torch.cat([prev.mask[None], kp_l.mask[:-1]])
+    sm_sep = tmatch.stereo_match(kp_l.desc, kp_l.xy, kp_l.mask, kp_r.desc, kp_r.xy, kp_r.mask,
+                                 **sgates)
+    tm_sep = tmatch.match_descriptors(kp_l.desc, kp_l.mask, pdesc, pmask, **gates)
+    for a, b in zip((*sm, *tm), (*sm_sep, *tm_sep)):
+        assert torch.equal(a, b)
+
+    u32 = lambda t: jnp.asarray(t.numpy().view(np.uint32))  # noqa: E731
+    for f in range(3):
+        ref_s = jmatch.stereo_match(u32(kp_l.desc[f]), jnp.asarray(kp_l.xy[f].numpy()),
+                                    jnp.asarray(kp_l.mask[f].numpy()), u32(kp_r.desc[f]),
+                                    jnp.asarray(kp_r.xy[f].numpy()),
+                                    jnp.asarray(kp_r.mask[f].numpy()), **sgates)
+        ref_t = jmatch.match_descriptors(u32(kp_l.desc[f]), jnp.asarray(kp_l.mask[f].numpy()),
+                                         u32(pdesc[f]), jnp.asarray(pmask[f].numpy()), **gates)
+        for a, b in zip((*sm, *tm), (*ref_s, *ref_t)):
+            np.testing.assert_array_equal(a[f].numpy(), np.asarray(b))
+    assert int(sm.mask.sum()) >= 20 and int(tm.mask[0].sum()) >= 10
+
+
 def test_ransac_translation_matches_jax_with_its_indices():
     rng = np.random.default_rng(1)
     K = 48

@@ -74,6 +74,19 @@ def test_fast_harris_plain_matches_xla_oracle():
     _assert_harris_close(harris_t.numpy()[0][m], np.asarray(harris_response(jnp.asarray(img)))[m])
 
 
+def test_fast_harris_corners_are_bool_and_match_pallas():
+    """Both the wrapper and the plain version return torch.bool corners,
+    equal to the Pallas kernel's (interpret mode) on the interior."""
+    imgs = np.stack([textured_image(64, 96, seed=s) for s in (3, 4)])
+    corner_p, _ = fast_harris_pallas(jnp.asarray(imgs), 10.0, tile_h=64, interpret=True)
+    m = np.broadcast_to(_interior(64, 96), imgs.shape)
+    for corner, _ in (kernels.fast_harris(torch.from_numpy(imgs), 10.0),
+                      kernels.fast_harris_plain(torch.from_numpy(imgs), 10.0)):
+        assert corner.dtype == torch.bool
+        np.testing.assert_array_equal(corner.numpy()[m], np.asarray(corner_p).astype(bool)[m])
+        assert corner.numpy()[m].sum() > 0
+
+
 def test_fast_harris_zero_image():
     """Ragged chunks are padded with zero images: no corners, zero Harris."""
     corner, harris = kernels.fast_harris(torch.zeros((2, 40, 64)), 10.0)
@@ -134,7 +147,9 @@ def test_plain_versions_do_not_count_launches():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 270, 480), (3, 57, 90)])
+@pytest.mark.parametrize(
+    "shape", [(16, 270, 480), (3, 57, 90), (1, 71, 250), (1, 270, 480), (48, 270, 480)]
+)
 def test_fast_harris_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     imgs = torch.rand(shape, generator=gen, device=cuda) * 255.0
@@ -144,16 +159,19 @@ def test_fast_harris_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert kernels.launch_counts["fast_harris"] == before + 1
     inner = (slice(None), slice(MARGIN, -MARGIN), slice(MARGIN, -MARGIN))
-    assert torch.equal(ck[inner] != 0, cp[inner] != 0)
+    assert ck.dtype == cp.dtype == torch.bool
+    assert torch.equal(ck[inner], cp[inner])
     # Same float operations in the same order: expected bit-identical.
     assert torch.equal(hk[inner], hp[inner])
 
 
 @pytest.mark.cuda
-def test_hamming_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("sizes", [(16, 48, 48), (8, 48, 37), (3, 70, 130)])
+def test_hamming_kernel_matches_plain(cuda, sizes):
+    b, na, nb = sizes
     gen = torch.Generator(device=cuda).manual_seed(1)
     da, db = (
-        torch.randint(-2**31, 2**31 - 1, (8, n, 8), generator=gen, device=cuda, dtype=torch.int32)
-        for n in (48, 37)
+        torch.randint(-2**31, 2**31 - 1, (b, n, 8), generator=gen, device=cuda, dtype=torch.int32)
+        for n in (na, nb)
     )
     assert torch.equal(kernels.hamming(da, db), kernels.hamming_plain(da, db))

@@ -89,6 +89,8 @@ def load() -> ctypes.CDLL:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.uslam_fast_harris.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
         lib.uslam_fast_harris.restype = i32
+        lib.uslam_fast_harris_strip_rows.argtypes = [i32, i32, i32]
+        lib.uslam_fast_harris_strip_rows.restype = i32
         lib.uslam_hamming.argtypes = [vp, vp, vp, i32, i32, i32, vp]
         lib.uslam_hamming.restype = i32
         lib.uslam_cuda_error_string.argtypes = [i32]
@@ -123,12 +125,13 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def fast_harris_plain(imgs: torch.Tensor, threshold: float, k: float = 0.04):
-    """Plain version: (B, H, W) f32 -> (corner int32, harris f32)."""
-    return fast_corners(imgs, threshold).to(torch.int32), harris_response(imgs, k=k)
+    """Plain version: (B, H, W) f32 -> (corner bool, harris f32)."""
+    return fast_corners(imgs, threshold), harris_response(imgs, k=k)
 
 
 def fast_harris(imgs: torch.Tensor, threshold: float, k: float = 0.04):
-    """FAST-9 corner flags and Harris response of a (B, H, W) float32 batch.
+    """FAST-9 corner flags (bool) and Harris response (f32) of a (B, H, W)
+    float32 batch.
 
     Agrees with :func:`fast_harris_plain` on pixels at least 5 px inside the
     border; callers mask the 3 px border of ``corner`` themselves."""
@@ -136,10 +139,10 @@ def fast_harris(imgs: torch.Tensor, threshold: float, k: float = 0.04):
     if imgs.device.type == "cpu":
         return fast_harris_plain(imgs, threshold, k)
     B, H, W = imgs.shape
-    if not (0 < B <= 65535 and H > 0 and W > 0):
+    if not (B > 0 and H > 0 and W > 0):
         raise ValueError(f"fast_harris: unsupported shape {tuple(imgs.shape)}")
     lib = load()
-    corner = torch.empty(imgs.shape, dtype=torch.int32, device=imgs.device)
+    corner = torch.empty(imgs.shape, dtype=torch.bool, device=imgs.device)
     harris = torch.empty_like(imgs)
     code = lib.uslam_fast_harris(
         imgs.data_ptr(), corner.data_ptr(), harris.data_ptr(), B, H, W,
@@ -185,8 +188,11 @@ def hamming(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, Na, Nb), dtype=torch.int32, device=da.device)
     if out.numel() == 0:
         return out
-    if B > 65535:
-        raise ValueError(f"hamming: batch {B} exceeds the grid limit")
+    # Grid (B, Na / 64, Nb / 64); descriptors read as 16-byte words.
+    if max(-(-Na // 64), -(-Nb // 64)) > 65535 or da.data_ptr() % 16 or db.data_ptr() % 16:
+        raise ValueError(
+            f"hamming: unsupported shape or alignment {tuple(da.shape)} x {tuple(db.shape)}"
+        )
     lib = load()
     code = lib.uslam_hamming(
         da.data_ptr(), db.data_ptr(), out.data_ptr(), B, Na, Nb, _stream(da)

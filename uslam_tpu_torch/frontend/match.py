@@ -1,7 +1,10 @@
 """Brute-force Hamming matching, temporal and stereo, batched over frames.
 
 Port of :mod:`uslam_tpu.frontend.match`. The distance matrices of all the
-frames of a chunk come from ONE launch of the ``hamming`` kernel. Policy:
+frames of a chunk come from ONE launch of the ``hamming`` kernel: the
+chunked tracker computes the stereo and the temporal matrices together and
+hands each to :func:`match_from_dist` / :func:`stereo_match_from_dist`;
+:func:`match_descriptors` and :func:`stereo_match` compute their own. Policy:
 mutual nearest neighbour + Lowe ratio + absolute distance gate; stereo adds
 the rectified-row gate and a positive-disparity gate.
 
@@ -28,8 +31,9 @@ class Matches(NamedTuple):
     mask: torch.Tensor
 
 
-def _mutual_ratio_match(dist, mask_a, mask_b, max_distance: int, ratio: float) -> Matches:
-    """dist (B, Na, Nb) int32; masks (B, Na), (B, Nb)."""
+def match_from_dist(dist, mask_a, mask_b, max_distance: int = 64, ratio: float = 0.8) -> Matches:
+    """Matching A -> B given their distance matrix: dist (B, Na, Nb) int32;
+    masks (B, Na), (B, Nb). Temporal matching is A current, B previous."""
     big = dist.new_tensor(BIG)
     dist = torch.where(mask_a[:, :, None] & mask_b[:, None, :], dist, big)
     na = dist.shape[1]
@@ -52,10 +56,27 @@ def match_descriptors(
     desc_a, mask_a, desc_b, mask_b, max_distance: int = 64, ratio: float = 0.8
 ) -> Matches:
     """Temporal matching A (current) -> B (previous), (B, N, 8) descriptors."""
-    return _mutual_ratio_match(
-        hamming(desc_a.contiguous(), desc_b.contiguous()),
-        mask_a, mask_b, max_distance, ratio,
+    return match_from_dist(
+        hamming(desc_a.contiguous(), desc_b.contiguous()), mask_a, mask_b, max_distance, ratio
     )
+
+
+def stereo_match_from_dist(
+    dist, xy_l, mask_l, xy_r, mask_r,
+    max_distance: int = 64,
+    ratio: float = 0.8,
+    max_v_diff: float = 5.0,
+    min_disparity: float = 0.25,
+    max_disparity: float = 512.0,
+) -> Matches:
+    """Left -> right matching on rectified pairs given their distance matrix
+    (B, Nl, Nr) int32: |vL - vR| <= max_v_diff and disparity uL - uR in
+    (min_disparity, max_disparity)."""
+    d_v = torch.abs(xy_l[:, :, None, 1] - xy_r[:, None, :, 1])
+    disp = xy_l[:, :, None, 0] - xy_r[:, None, :, 0]
+    geom = (d_v <= max_v_diff) & (disp > min_disparity) & (disp < max_disparity)
+    dist = torch.where(geom, dist, dist.new_tensor(BIG))
+    return match_from_dist(dist, mask_l, mask_r, max_distance, ratio)
 
 
 def stereo_match(
@@ -66,11 +87,8 @@ def stereo_match(
     min_disparity: float = 0.25,
     max_disparity: float = 512.0,
 ) -> Matches:
-    """Left -> right matching on rectified pairs: |vL - vR| <= max_v_diff
-    and disparity uL - uR in (min_disparity, max_disparity)."""
-    dist = hamming(desc_l.contiguous(), desc_r.contiguous())
-    d_v = torch.abs(xy_l[:, :, None, 1] - xy_r[:, None, :, 1])
-    disp = xy_l[:, :, None, 0] - xy_r[:, None, :, 0]
-    geom = (d_v <= max_v_diff) & (disp > min_disparity) & (disp < max_disparity)
-    dist = torch.where(geom, dist, dist.new_tensor(BIG))
-    return _mutual_ratio_match(dist, mask_l, mask_r, max_distance, ratio)
+    """:func:`stereo_match_from_dist` on the descriptors' distance matrix."""
+    return stereo_match_from_dist(
+        hamming(desc_l.contiguous(), desc_r.contiguous()), xy_l, mask_l, xy_r, mask_r,
+        max_distance, ratio, max_v_diff, min_disparity, max_disparity,
+    )

@@ -141,8 +141,8 @@ def extract_orb_batch(imgs: torch.Tensor, cfg: FrontendConfig = FrontendConfig()
     for lvl, im in enumerate(build_pyramid(imgs, cfg.pyramid_levels)):
         im = im.contiguous()
         _, h, w = im.shape
-        corner_i, harris = fast_harris(im, cfg.fast_threshold)
-        corners = (corner_i != 0) & interior_mask(h, w, 3, im.device)
+        corner, harris = fast_harris(im, cfg.fast_threshold)
+        corners = corner & interior_mask(h, w, 3, im.device)
         # NMS among corner candidates only: non-corners must not suppress.
         valid = corners & nms3(torch.where(corners, harris, harris.new_tensor(_NEG)))
         inside = interior_mask(h, w, _EDGE_MARGIN, im.device)

@@ -19,7 +19,8 @@ import torch
 
 from uslam_tpu_torch.config import CameraConfig, FrontendConfig
 from uslam_tpu_torch.io.sequence import FeatureFrame
-from uslam_tpu_torch.frontend.match import match_descriptors, stereo_match
+from uslam_tpu_torch.frontend.kernels import hamming
+from uslam_tpu_torch.frontend.match import match_from_dist, stereo_match_from_dist
 from uslam_tpu_torch.frontend.orb import Keypoints, extract_orb_batch
 from uslam_tpu_torch.geometry.so3 import quat_rotate, so3_exp
 
@@ -72,6 +73,28 @@ def ransac_translation(
     return torch.where(mask.any(dim=1, keepdim=True), best_inl & mask, mask)
 
 
+def chunk_matches(kp_l: Keypoints, kp_r: Keypoints, prev: Keypoints, cfg: FrontendConfig):
+    """Stereo (left -> right) and temporal (left -> previous left) matches
+    of a chunk's C frames, from ONE ``hamming`` launch over (2C, K, 8):
+    rows 0..C-1 left vs right, rows C..2C-1 left vs previous left (``prev``
+    before the first frame). Returns (stereo Matches, temporal Matches)."""
+    c = kp_l.desc.shape[0]
+    pdesc = torch.cat([prev.desc[None], kp_l.desc[:-1]])
+    pmask = torch.cat([prev.mask[None], kp_l.mask[:-1]])
+    dist = hamming(torch.cat([kp_l.desc, kp_l.desc]), torch.cat([kp_r.desc, pdesc]))
+    sm = stereo_match_from_dist(
+        dist[:c], kp_l.xy, kp_l.mask, kp_r.xy, kp_r.mask,
+        max_distance=cfg.match_max_distance,
+        ratio=cfg.match_ratio,
+        max_v_diff=cfg.stereo_max_v_diff,
+        min_disparity=cfg.stereo_min_disparity,
+    )
+    tm = match_from_dist(
+        dist[c:], kp_l.mask, pmask, max_distance=cfg.match_max_distance, ratio=cfg.match_ratio
+    )
+    return sm, tm
+
+
 def orb_chunk_step(pairs, prev: Keypoints, cfg: FrontendConfig, rotvecs, kvec, hyp_idx):
     """C stereo pairs (C, 2, H, W) float32 -> per-frame (kp_left, kp_right,
     stereo idx, stereo mask, temporal idx or -1), leading dim C.
@@ -84,20 +107,8 @@ def orb_chunk_step(pairs, prev: Keypoints, cfg: FrontendConfig, rotvecs, kvec, h
     kp = extract_orb_batch(pairs.reshape((2 * c,) + pairs.shape[2:]), cfg)
     kp_l = Keypoints(*(a[0::2] for a in kp))
     kp_r = Keypoints(*(a[1::2] for a in kp))
-    sm = stereo_match(
-        kp_l.desc, kp_l.xy, kp_l.mask, kp_r.desc, kp_r.xy, kp_r.mask,
-        max_distance=cfg.match_max_distance,
-        ratio=cfg.match_ratio,
-        max_v_diff=cfg.stereo_max_v_diff,
-        min_disparity=cfg.stereo_min_disparity,
-    )
-    pdesc = torch.cat([prev.desc[None], kp_l.desc[:-1]])
     pxy = torch.cat([prev.xy[None], kp_l.xy[:-1]])
-    pmask = torch.cat([prev.mask[None], kp_l.mask[:-1]])
-    tm = match_descriptors(
-        kp_l.desc, kp_l.mask, pdesc, pmask,
-        max_distance=cfg.match_max_distance, ratio=cfg.match_ratio,
-    )
+    sm, tm = chunk_matches(kp_l, kp_r, prev, cfg)
     rotating = torch.any(rotvecs != 0.0, dim=-1)[:, None, None]
     pxy_w = torch.where(rotating, rotation_warp(pxy, rotvecs, kvec), pxy)
     prev_at = torch.gather(pxy_w, 1, torch.clamp(tm.idx, min=0)[..., None].expand(-1, -1, 2))
