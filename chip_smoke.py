@@ -19,11 +19,26 @@ Phases, each of which raises (exit code != 0) on failure:
    N flush+kernel pairs less that of N flushes), beside its bound (the
    larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s).
    Then a torch.profiler breakdown of one front-end chunk's device time.
-4. slice: ``run_sequence`` on a rendered 20 s synthetic dive (100 stereo
-   keyframes at 1920x1080, 200 landmarks, 200 Hz IMU) with the dense LM;
-   checks the launch counts of both kernels (fast_harris once per level
-   per chunk, hamming once per chunk), the LM's error decrease, and the
-   trajectory error against ground truth and the DVL odometry.
+4. slice: ``run_sequence`` with the default ``UslamConfig()`` (Schur +
+   velocity elimination) on a rendered 20 s synthetic dive (100 stereo
+   keyframes at 1920x1080, 200 landmarks, 200 Hz IMU); checks the launch
+   counts of both kernels (fast_harris once per level per chunk, hamming
+   once per chunk), the LM's error decrease, and the trajectory error
+   against ground truth and the DVL odometry; then where one LM iteration
+   goes (host clock per stage, torch.profiler device time of the solve).
+5. Schur vs dense, on the features phase 4 left in the sequence (no front
+   end): at the slice's solution, the Schur step against the dense step
+   in float64 and from the float32 linearization, and both steps repeated
+   bit for bit; the default solve run again, ending bit-identical; the
+   dense linear solver to convergence, whose final error the Schur LM's
+   must come within ``SCHUR_VS_DENSE_ERROR`` of.
+6. offline tail: the float64 polish and float64 marginals (three poses,
+   three landmarks, the bias, one joint covariance) from the slice's
+   result, on the card.
+7. 1k: bench.py's 1000-pose precomputed-feature solve with the default
+   solver and the polish (at most 2 iterations, as bench.py runs it, then
+   the default 12); its ATEs against ground truth and the DVL odometry,
+   and its LM-iteration profile.
 
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -32,6 +47,7 @@ nothing of the JAX package ``uslam_tpu``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -43,6 +59,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PLAIN_REPS = 5
 KERNEL_REPS = 50
+# The Schur step against the dense step of the same linearization: in
+# float64, the Schur-vs-dense tolerance of tests/test_torch_schur.py; from a
+# float32 linearization, that of tests/test_torch_single_obs.py (the step
+# is returned in float32).
+SCHUR_STEP_RTOL = 1e-7
+SCHUR_F32_STEP_RTOL = 1e-6
+# The Schur LM's final error may exceed the dense LM's by this factor at
+# most: both stop on the float32 error floor, where the last accepted steps
+# follow rounding (port/JAX final-error ratios of 0.82-1.17 over five seeds,
+# tests/test_torch_slice.py).
+SCHUR_VS_DENSE_ERROR = 1.5
 HOST_AHEAD_CYCLES = 50_000_000  # ~28 ms of device spin while the host enqueues
 FLUSH_BYTES = 96 << 20          # > the H100's 50 MB L2
 # Card peaks the bounds use (NVIDIA's H100 SXM data sheet): HBM bytes/s and
@@ -235,6 +262,272 @@ def profile_chunk(seq, cfg, top: int = 8) -> None:
         log(f"  {name[:70]}: {ms!r} ms device, {n} calls")
 
 
+def _median_ms(fn, reps: int = 3):
+    """(median host ms of ``reps`` synchronized calls of ``fn``, last output)."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2], out
+
+
+def profile_solve(result, cfg, label: str, top: int = 6) -> None:
+    """Where one LM iteration of the default solver goes at ``result``'s
+    solution: host clock around synchronized calls (median of 3) of each
+    stage, then torch.profiler's device time of one whole ``solve_schur``
+    summed by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from uslam_tpu_torch.device import cast_tree
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.solvers import bands, schur
+    from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
+
+    g, v, sc = result.graph, result.values, cfg.solver
+    n, n_lm = v.num_poses, v.num_landmarks
+    cam = StereoCamera.from_config(cfg.camera, device="cuda")
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    lam, jitter = sc.lambda_initial, sc.cholesky_jitter  # Marquardt with the lambda floor
+    t_lin, lin = _median_ms(lambda: linearize_graph(g, v, cam, *sig))
+    t_err, _ = _median_ms(lambda: graph_error(g, v, cam, *sig))
+    # The stages as solve_schur runs them: in float64.
+    t_cast, (lin64, st64) = _median_ms(lambda: (
+        cast_tree(lin, torch.float64, "cuda"), cast_tree(g.stereo, torch.float64, "cuda")))
+    t_elim, (_hi, g_l, U, V) = _median_ms(
+        lambda: schur.landmark_elimination(lin64, st64, n, lam, True))
+    t_bands, b = _median_ms(lambda: bands.assemble_cam_bands(lin64, st64, n, lam, True))
+    t_corr, H_corr = _median_ms(lambda: U @ V.T)
+    t_vel, _ = _median_ms(lambda: schur._solve_vel_eliminated(
+        b, H_corr, U @ g_l.reshape(-1), n, sc.refine_iters, jitter))
+    # The (6N+6) pose+bias principal block of the reduced camera matrix: SPD
+    # and the size of the factorization velocity elimination leaves.
+    S, _ = bands.expand_cam_dense(b, pp_extra=-H_corr)
+    keep = torch.cat([torch.arange(6 * n), torch.arange(9 * n, 9 * n + 6)]).cuda()
+    t_chol, (_L, info) = _median_ms(lambda: torch.linalg.cholesky_ex(S[keep][:, keep]))
+
+    def solve():
+        return schur.solve_schur(lin, g.stereo, n, n_lm, lam, refine_iters=sc.refine_iters,
+                                 jitter=jitter, diag_damping=True, eliminate_velocities=True)
+
+    t_solve, _ = _median_ms(solve)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer"):
+            acc = per_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    device_ms = sum(ms for ms, _ in per_name.values())
+    log(f"{label} LM-iteration profile (N={n}, M={n_lm}, host ms, median of 3): "
+        f"linearize {t_lin!r}, graph_error {t_err!r}, solve_schur {t_solve!r} = float64 cast "
+        f"{t_cast!r} + landmark elimination {t_elim!r} + bands {t_bands!r} + U V^T "
+        f"{t_corr!r} + velocity elimination and reduced solve {t_vel!r}; float64 Cholesky of "
+        f"the {6 * n + 6} reduced block alone {t_chol!r} (info {int(info)})")
+    log(f"  solve_schur device time {device_ms!r} ms in {sum(c for _, c in per_name.values())} "
+        f"kernels (busy {device_ms / t_solve!r} of its host time); top:")
+    for name, (ms, k) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {name[:70]}: {ms!r} ms, {k} calls")
+
+
+def schur_witness(result, cfg) -> dict:
+    """At the slice's solution, on the card: (a) the Schur step against the
+    dense step over the whole tangent space, both in float64, at two
+    lambdas; (b) the default path's step (``solve_schur`` given the float32
+    linearization) against the float64 dense step of that linearization;
+    (c) the float32 linearization and both solvers' steps, computed twice,
+    are bit-identical."""
+    import torch
+
+    from uslam_tpu_torch.device import cast_tree
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.solvers import dense, schur
+    from uslam_tpu_torch.solvers.linearize import linearize_graph
+
+    g, v, sc = result.graph, result.values, cfg.solver
+    n, n_lm = v.num_poses, v.num_landmarks
+    args = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity,
+            cfg.noise.stereo_huber_delta)
+    kw = dict(refine_iters=sc.refine_iters, jitter=sc.cholesky_jitter, diag_damping=True)
+
+    def steps(lin, stereo, lam):
+        H, grad = dense.assemble_dense_with_landmarks(lin, stereo.cam_idx, stereo.lm_idx, n, n_lm)
+        return (schur.solve_schur(lin, stereo, n, n_lm, lam, eliminate_velocities=True, **kw),
+                dense.solve_dense_gn(H, grad, lam, **kw))
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b))
+
+    cam32 = StereoCamera.from_config(cfg.camera, device="cuda")
+    g64, cam64 = cast_tree(g, torch.float64, "cuda"), cast_tree(cam32, torch.float64, "cuda")
+    lin64 = linearize_graph(g64, cast_tree(v, torch.float64, "cuda"), cam64, *args)
+    lin32 = linearize_graph(g, v, cam32, *args)
+    lin32_as64 = cast_tree(lin32, torch.float64, "cuda")
+    lams = (sc.lambda_initial, 1e-2)
+    f64_rel, f32_rel = [], []
+    for lam in lams:
+        f64_rel.append(rel(*steps(lin64, g64.stereo, lam)))
+        d_ref = steps(lin32_as64, g64.stereo, lam)[1]
+        f32_rel.append(rel(steps(lin32, g.stereo, lam)[0], d_ref))
+    again = linearize_graph(g, v, cam32, *args)
+    first, second = steps(lin32, g.stereo, lams[0]), steps(again, g.stereo, lams[0])
+    same = {
+        "linearization": all(torch.equal(a, b) for a, b in zip(lin32, again)),
+        "schur step": torch.equal(first[0], second[0]),
+        "dense step": torch.equal(first[1], second[1]),
+    }
+    log(f"Schur vs dense step at the slice's solution (lambda {lams}, D = {9 * n + 6 + 3 * n_lm}): "
+        f"float64 both, relative difference {f64_rel!r}; float32 linearization through "
+        f"solve_schur vs the float64 dense step of it {f32_rel!r}; bit-identical when "
+        f"repeated: {same}")
+    return {
+        f"Schur step = dense step in float64 (relative < {SCHUR_STEP_RTOL})":
+        max(f64_rel) < SCHUR_STEP_RTOL,
+        f"float32-input Schur step = float64 dense step (relative < {SCHUR_F32_STEP_RTOL})":
+        max(f32_rel) < SCHUR_F32_STEP_RTOL,
+        "linearization, Schur step and dense step bit-identical when repeated": all(same.values()),
+    }
+
+
+def _f64_block_ok(A) -> bool:
+    """Finite, symmetric to 1e-9 relative, positive definite, float64 on the card."""
+    import torch
+
+    scale = float(A.abs().max())
+    return bool(
+        A.dtype == torch.float64 and A.device.type == "cuda"
+        and bool(torch.isfinite(A).all())
+        and float((A - A.transpose(-1, -2)).abs().max()) <= 1e-9 * scale
+        and bool((torch.linalg.cholesky_ex(A)[1] == 0).all())
+    )
+
+
+def offline_tail(result, seq, cfg) -> dict:
+    """The f64 polish and the marginals from the slice's result, on the card."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.pipeline import AUVSlam
+    from uslam_tpu_torch.solvers.marginals import marginal_sigmas
+    from uslam_tpu_torch.solvers.polish import polish_f64
+
+    m = result.metrics
+    n = m["num_poses"]
+    gt = seq.gt_pos[:n]
+    cam = StereoCamera.from_config(cfg.camera, device="cuda")
+    t0 = time.perf_counter()
+    vals, info = polish_f64(
+        result.graph, result.values, cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma,
+        cfg.imu.gravity, cfg.solver, huber_delta=cfg.noise.stereo_huber_delta, device="cuda",
+    )
+    torch.cuda.synchronize()
+    polish_s = time.perf_counter() - t0
+    ate_pol = ate_rmse(vals.pose_trans.cpu().numpy(), gt)
+    log(f"f64 polish on the card: {info['polish_iterations']} iterations in {polish_s!r} s, "
+        f"error {info['polish_initial_error']!r} -> {info['polish_final_error']!r} "
+        f"(f32 final {m['final_error']!r}); ATE {m['ate_rmse_vs_gt']!r} -> {ate_pol!r} m")
+
+    slam = AUVSlam(cfg, device="cuda")
+    s = result.graph.stereo
+    lms = torch.unique(s.lm_idx[s.mask > 0]).tolist()[:3]
+    poses = (0, n // 2, n - 1)
+    t_marg, marg = _median_ms(lambda: slam.marginals(
+        result, pose_indices=poses, landmark_indices=lms, include_bias=True), reps=1)
+    keys = (("pose", 0), ("pose", n - 1), ("vel", n // 2), ("bias",), ("landmark", lms[0]))
+    t_joint, joint = _median_ms(lambda: slam.joint_marginals(result, keys), reps=1)
+    log(f"marginals on the card (float64): poses {poses}, landmarks {lms} and the bias in "
+        f"{t_marg!r} ms; joint over {len(keys)} keys {tuple(joint.shape)} in {t_joint!r} ms")
+    for i, sg in zip(poses, marginal_sigmas(marg.pose)):
+        log(f"  pose {i} sigmas [rot, trans]: {np.array2string(sg, precision=5)}")
+    log(f"  landmark sigmas: {np.array2string(marginal_sigmas(marg.landmark), precision=5)}")
+    blocks = list(marg.pose) + list(marg.landmark) + [marg.bias, joint]
+    return {
+        "polish: polished error <= f32 final error": info["polish_final_error"] <= m["final_error"],
+        "marginals: finite, symmetric, PD, float64 on cuda": all(_f64_block_ok(A) for A in blocks),
+    }
+
+
+def solve_1k() -> dict:
+    """bench.py's 1k-pose batch solve (bench.py:279-306) with the default
+    Schur + velocity-elimination solver, then the f64 polish."""
+    import torch
+
+    from uslam_tpu_torch.config import SolverConfig, UslamConfig
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import run_sequence
+    from uslam_tpu_torch.solvers.polish import polish_f64
+
+    t0 = time.perf_counter()
+    seq = generate_synthetic_sequence(SyntheticSpec(
+        duration=200.0, keyframe_rate=5.0, num_landmarks=512, omega=0.15,
+        odom_drift_rate=0.02, feature_noise_px=0.3, seed=0,
+    ))
+    gen_s = time.perf_counter() - t0
+    cfg = UslamConfig(solver=SolverConfig(
+        max_iterations=50, plateau_patience=3, relative_error_tol=1e-5))
+    initial = pack_sequence(seq, cfg)[1]
+    t0 = time.perf_counter()
+    r = run_sequence(seq, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = r.metrics
+    n = m["num_poses"]
+    gt = seq.gt_pos[:n]
+    cam = StereoCamera.from_config(cfg.camera, device="cuda")
+
+    def polish(max_iters):
+        t0 = time.perf_counter()
+        vals, info = polish_f64(r.graph, r.values, cam, cfg.noise.dvl_sigma,
+                                cfg.noise.stereo_sigma, cfg.imu.gravity, cfg.solver,
+                                max_iters=max_iters, device="cuda")
+        torch.cuda.synchronize()
+        return vals, info, time.perf_counter() - t0
+
+    # bench.py's polish (BENCH_POLISH_ITERS=2, bench.py:720), for the
+    # comparison with the JAX package's record, then the default 12.
+    vals2, info2, polish2_s = polish(2)
+    vals, info, polish_s = polish(12)
+    ate_init = ate_rmse(initial.pose_trans, gt)
+    ate_pol2 = ate_rmse(vals2.pose_trans.cpu().numpy(), gt)
+    ate_pol = ate_rmse(vals.pose_trans.cpu().numpy(), gt)
+    ate_odom = ate_rmse(r.odom_compare, gt)
+    st = r.graph.stereo
+    log(f"1k-pose solve (bench.py:279-306 spec; sequence made in {gen_s!r} s): N={n}, "
+        f"landmark rows {m['num_landmarks']}, {int(st.mask.sum())} stereo observations, "
+        f"reduced system {6 * n + 6}")
+    log(f"  pack {m['pack_seconds']!r} s; solve {m['solve_seconds']!r} s, "
+        f"{m['lm_iterations']} LM iterations; run_sequence wall {wall!r} s")
+    log(f"  error {m['initial_error']!r} -> {m['final_error']!r}")
+    log(f"  ATE vs ground truth: initial {ate_init!r} -> final {m['ate_rmse_vs_gt']!r}; "
+        f"DVL odometry {ate_odom!r} m")
+    for label, inf, sec, ate_p in (("bench.py's 2", info2, polish2_s, ate_pol2),
+                                   ("the default 12", info, polish_s, ate_pol)):
+        log(f"  polish, at most {label} iterations: {inf['polish_iterations']} in {sec!r} s, "
+            f"error {inf['polish_initial_error']!r} -> {inf['polish_final_error']!r}, "
+            f"ATE {ate_p!r} m")
+    profile_solve(r, cfg, "1k")
+    return {
+        "1k: final_error < initial_error": m["final_error"] < m["initial_error"],
+        "1k: final ATE below the initial ATE and the DVL odometry's":
+        m["ate_rmse_vs_gt"] < ate_init and m["ate_rmse_vs_gt"] < ate_odom,
+        "1k: polished error <= f32 final error": info["polish_final_error"]
+        <= info2["polish_final_error"] <= m["final_error"],
+    }
+
+
 def main() -> int:
     if not (ROOT / "uslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -259,7 +552,7 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
 
-    from uslam_tpu_torch.config import SolverConfig, UslamConfig
+    from uslam_tpu_torch.config import UslamConfig
     from uslam_tpu_torch.eval.metrics import ate_rmse
     from uslam_tpu_torch.frontend import kernels
     from uslam_tpu_torch.frontend.orb import extract_orb_batch
@@ -277,7 +570,7 @@ def main() -> int:
     log(f"  fast_harris SASS: {sass_loop_summary(kernels.load()._name)}")
 
     # ---- 3. kernels against their plain versions ---------------------------
-    cfg = UslamConfig(solver=SolverConfig(linear_solver="dense"))
+    cfg = UslamConfig()
     t0 = time.perf_counter()
     seq = generate_synthetic_sequence(
         SyntheticSpec(duration=20.0, odom_drift_rate=0.05),
@@ -348,7 +641,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_chunk(seq, cfg)
 
-    # ---- 4. the slice: run_sequence on the card ----------------------------
+    # ---- 4. the slice, default config: run_sequence on the card ------------
     n_frames = len(seq.image_t)
     n_chunks = math.ceil(n_frames / chunk)
     kernels.reset_launch_counts()
@@ -358,42 +651,77 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     m = result.metrics
-    traj = result.trajectory
-    gt = seq.gt_pos[: len(traj)]
-    ate_odom = ate_rmse(result.odom_compare, gt)
+    n_poses, n_rows = m["num_poses"], m["num_landmarks"]
+    ate_odom = ate_rmse(result.odom_compare, seq.gt_pos[:n_poses])
     s = result.graph.stereo
     n_lm_obs = int(torch.unique(s.lm_idx[s.mask > 0]).numel())
-    log("slice:")
+    log("slice (default SolverConfig: Schur + velocity elimination):")
     log(f"  launches: {launches} expected fast_harris={n_chunks * levels} "
         f"hamming={n_chunks} ({n_chunks} chunks of {chunk}, {levels} levels)")
     log(f"  frontend: {m['frontend_frames']} frames in {m['frontend_seconds']!r} s "
         f"= {m['frontend_frames'] / m['frontend_seconds']!r} frames/s")
+    obs_per_lm = np.bincount(s.lm_obs_mask.sum(1).long().cpu().numpy())
+    log(f"  reduced system 6N+6 = {6 * n_poses + 6} (N={n_poses}); landmark rows M={n_rows}, "
+        f"observed {n_lm_obs}; full tangent {9 * n_poses + 6 + 3 * n_rows}; landmarks by "
+        f"observation count {dict((k, int(c)) for k, c in enumerate(obs_per_lm) if k and c)}")
     log(f"  pack: {m['pack_seconds']!r} s; solve: {m['solve_seconds']!r} s, "
         f"{m['lm_iterations']} LM iterations, converged={m['converged']}")
     log(f"  error {m['initial_error']!r} -> {m['final_error']!r}")
-    log(f"  poses={m['num_poses']} observed landmarks={n_lm_obs} "
-        f"(landmark rows {m['num_landmarks']})")
     log(f"  ATE vs ground truth {m['ate_rmse_vs_gt']!r} m; DVL odometry {ate_odom!r} m")
     log(f"  run_sequence wall {wall!r} s")
-
+    traj = result.trajectory
     checks = {
         "fast_harris launched once per level per chunk": launches["fast_harris"] == n_chunks * levels,
         "hamming launched once per chunk": launches["hamming"] == n_chunks,
         "every frame went through the front end": m["frontend_frames"] == n_frames,
-        "trajectory shape and finite": traj.shape == (m["num_poses"], 3)
-        and bool(np.isfinite(traj).all()),
+        "trajectory shape and finite": traj.shape == (n_poses, 3) and bool(np.isfinite(traj).all()),
         "final_error < initial_error": m["final_error"] < m["initial_error"],
         "at least 20 landmarks observed": n_lm_obs >= 20,
         "ATE finite and below the DVL odometry's": math.isfinite(m["ate_rmse_vs_gt"])
         and m["ate_rmse_vs_gt"] < ate_odom,
-        "neither JAX nor the JAX package imported": not any(
-            name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
-        ),
     }
+    profile_solve(result, cfg, "slice")
+
+    # ---- 5. the Schur solve held to the dense one on the slice's graph -----
+    checks.update(schur_witness(result, cfg))
+    kernels.reset_launch_counts()
+    again = run_sequence(seq, cfg, device="cuda")  # the features phase 4 left
+    ma = again.metrics
+    log(f"default solver again on the same features (kernel launches "
+        f"{dict(kernels.launch_counts)}): {ma['lm_iterations']} LM iterations, error "
+        f"{ma['final_error']!r}, solve {ma['solve_seconds']!r} s")
+    checks["a second solve of the same graph ends bit-identical"] = (
+        ma["lm_iterations"] == m["lm_iterations"] and ma["final_error"] == m["final_error"]
+        and torch.equal(again.values.pose_trans, result.values.pose_trans)
+    )
+    cfg_dense = dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, linear_solver="dense"))
+    dense = run_sequence(seq, cfg_dense, device="cuda")
+    torch.cuda.synchronize()
+    md = dense.metrics
+    log("dense solver on the same features:")
+    log(f"  full tangent D = {9 * n_poses + 6 + 3 * n_rows}; error {md['initial_error']!r} -> "
+        f"{md['final_error']!r}; ATE {md['ate_rmse_vs_gt']!r} m")
+    log(f"  solve_seconds / LM iterations: schur {m['solve_seconds']!r} s / "
+        f"{m['lm_iterations']}, dense {md['solve_seconds']!r} s / {md['lm_iterations']}; "
+        f"final error schur / dense {m['final_error'] / md['final_error']!r}")
+    checks["dense: final_error < initial_error"] = md["final_error"] < md["initial_error"]
+    checks[f"Schur final error <= {SCHUR_VS_DENSE_ERROR} x the dense solver's"] = (
+        m["final_error"] <= SCHUR_VS_DENSE_ERROR * md["final_error"])
+
+    # ---- 6. the offline tail: f64 polish and marginals on the card ---------
+    checks.update(offline_tail(result, seq, cfg))
+
+    # ---- 7. the solver at its published scale: the 1k-pose batch solve -----
+    checks.update(solve_1k())
+
+    checks["neither JAX nor the JAX package imported"] = not any(
+        name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
+    )
     for name, ok in checks.items():
         log(f"  check {'PASS' if ok else 'FAIL'}: {name}")
     if not all(checks.values()):
-        raise AssertionError("slice checks failed")
+        raise AssertionError("checks failed")
 
     record = {
         "kernels": [

@@ -48,7 +48,7 @@ from uslam_tpu_torch.graph.packing import pack_sequence
 from uslam_tpu_torch.interop import config_to_port, from_port, to_port
 from uslam_tpu_torch.io import synthetic as tsynth
 from uslam_tpu_torch.io import timesync as ttimesync
-from uslam_tpu_torch.pipeline import run_solver
+from uslam_tpu_torch.pipeline import AUVSlam, run_solver
 from uslam_tpu_torch.solvers import dense as tdense
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.lm import optimize_lm
@@ -372,11 +372,24 @@ def test_lm_matches_jax_f64(problem):
 
 
 def test_unported_solver_paths_raise(problem):
+    """The default solver config and the f64 polish solve; the banded
+    reduced solver and debug_nans are not ported and raise."""
     tg, tv = problem["ours"][:2]
+    short = dict(max_iterations=3)
+    for solver in (tconfig.SolverConfig(**short), tconfig.SolverConfig(f64_polish=True, **short)):
+        slam = AUVSlam(tconfig.UslamConfig(solver=solver), device="cpu")
+        slam._graph_cache = (to_port(tg, "cpu"), to_port(tv, "cpu"))
+        result = slam.solve()
+        m = result.metrics
+        assert m["final_error"] < m["initial_error"]
+        if solver.f64_polish:
+            assert m["polish_final_error"] <= m["polish_initial_error"]
+            assert result.values.pose_trans.dtype == torch.float64
     ct = tcam.StereoCamera.from_config(tconfig.CameraConfig(), device="cpu")
     for solver in (
-        tconfig.SolverConfig(),
+        tconfig.SolverConfig(reduced_solver="banded"),
         tconfig.SolverConfig(linear_solver="dense", reduced_solver="banded"),
+        tconfig.SolverConfig(debug_nans=True),
     ):
         with pytest.raises(NotImplementedError):
             run_solver(to_port(tg, "cpu"), to_port(tv, "cpu"), ct, *SIGMAS, solver)

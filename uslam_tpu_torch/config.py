@@ -3,11 +3,11 @@ for field and default for default (``tests/test_torch_backend.py`` holds the
 two equal); :func:`uslam_tpu_torch.interop.config_to_port` carries a JAX
 package config across.
 
-The port reads every field on the offline stereo-image path. Fields of
-paths it has not ported yet (the Schur, banded and CG solvers, f64 polish,
-the KLT tracker) are kept so configs stay interchangeable; choosing such a
-path raises ``NotImplementedError``. ``FrontendConfig.use_pallas`` is not
-read: the front-end kernels dispatch on the device of their tensors.
+The port reads every field of the offline batch path. Fields of paths it
+has not ported yet (the banded reduced solver, ``debug_nans``, the KLT
+tracker) are kept so configs stay interchangeable; choosing such a path
+raises ``NotImplementedError``. ``FrontendConfig.use_pallas`` is not read:
+the front-end kernels dispatch on the device of their tensors.
 """
 
 from __future__ import annotations
@@ -104,8 +104,8 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class SolverConfig:
-    """Levenberg-Marquardt parameters. The port solves with
-    ``linear_solver='dense'`` only; the default 'schur' raises."""
+    """Levenberg-Marquardt parameters; ``reduced_solver='banded'`` and
+    ``debug_nans`` are not ported and raise."""
 
     max_iterations: int = 100
     lambda_initial: float = 1e-5

@@ -23,6 +23,8 @@ from uslam_tpu_torch.graph.builder import (
     StereoObservations,
     bucket,
     compute_imu_whiteners,
+    rank_within_group,
+    stratified_obs_mask,
 )
 from uslam_tpu_torch.graph.values import Values
 from uslam_tpu_torch.io.sequence import SensorSequence
@@ -43,27 +45,6 @@ def _nearest_within_slop(
     out = stream_v[pick].astype(np.float64)
     out[np.abs(stream_t[pick] - query_t) > slop] = 0.0
     return out
-
-
-def _rank_within_group(keys: np.ndarray) -> np.ndarray:
-    """ranks[i] = number of earlier elements with the same key."""
-    o = np.argsort(keys, kind="stable")
-    sk = keys[o]
-    is_new = np.r_[True, sk[1:] != sk[:-1]]
-    grp_first = np.maximum.accumulate(np.where(is_new, np.arange(len(sk)), 0))
-    ranks = np.empty(len(keys), int)
-    ranks[o] = np.arange(len(sk)) - grp_first
-    return ranks
-
-
-def stratified_obs_mask(keys: np.ndarray, cap: int) -> np.ndarray:
-    """Keep min(count, cap) observations evenly spaced through each group's
-    time order, so loop-closure re-observations survive the budget."""
-    if not len(keys):
-        return np.ones(0, bool)
-    rank = _rank_within_group(keys)
-    counts = np.bincount(keys)[keys]
-    return ((rank + 1) * cap) // counts > (rank * cap) // counts
 
 
 def pack_sequence(
@@ -218,7 +199,7 @@ def pack_sequence(
 
     M = bucket(max(m, 1))
     if f_real:
-        rank = _rank_within_group(lm_k)
+        rank = rank_within_group(lm_k)
         K = bucket(max(int(rank.max()) + 1, 1), minimum=2)
         lm_obs_idx = np.zeros((M, K), np.int32)
         lm_obs_mask = np.zeros((M, K))

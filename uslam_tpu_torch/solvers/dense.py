@@ -18,6 +18,39 @@ from uslam_tpu_torch.graph.values import BIAS_DIM, FRAME_DIM, LM_DIM, POSE_DIM, 
 from uslam_tpu_torch.solvers.linearize import Linearization
 
 
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate) inverse of batched 3x3 matrices (..., 3, 3)
+    plus one Newton step X <- X (2I - A X), which squares the cofactor
+    form's ~2e-4 relative f32 residual to ~1e-7 (the JAX package's
+    docstring measures why that matters for LM step quality). Operands are
+    damped SPD landmark blocks; a padded landmark's block is 1e-8 I
+    (det 1e-24, representable in f32)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    C00 = e * i - f * h
+    C01 = c * h - b * i
+    C02 = b * f - c * e
+    C10 = f * g - d * i
+    C11 = a * i - c * g
+    C12 = c * d - a * f
+    C20 = d * h - e * g
+    C21 = b * g - a * h
+    C22 = a * e - b * d
+    det = a * C00 + b * C10 + c * C20
+    adj = torch.stack(
+        [
+            torch.stack([C00, C01, C02], -1),
+            torch.stack([C10, C11, C12], -1),
+            torch.stack([C20, C21, C22], -1),
+        ],
+        -2,
+    )
+    X = adj / det[..., None, None]
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    return X @ (2.0 * eye - A @ X)
+
+
 def _block_rows(off: torch.Tensor, d: int) -> torch.Tensor:
     """(F,) offsets + block dim -> (F, d) row indices."""
     return off[:, None] + torch.arange(d, device=off.device)[None, :]
@@ -124,31 +157,35 @@ def _add_diag(H: torch.Tensor, v) -> torch.Tensor:
     return out
 
 
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of A. A failed factorization does not raise:
+    like XLA's, it yields NaN, which the LM loop rejects as a non-finite
+    step (no host sync here)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+
+
 def scaled_cho_solve(
     H: torch.Tensor, g: torch.Tensor, refine_iters: int = 4, jitter: float = 1e-7
 ) -> torch.Tensor:
     """Cholesky solve of D^-1/2 H D^-1/2 (unit diagonal, so every f32 pivot
     is O(1)) with a relative jitter, then Richardson refinement against the
     unjittered scaled system (see the JAX package's docstring for why these
-    defaults).
-
-    A failed factorization does not raise: like XLA's, it yields NaN, which
-    the LM loop rejects as a non-finite step (no host sync here)."""
-    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-20))
-    d_inv = 1.0 / d
+    defaults). ``g`` is one right-hand side (D,) or several (D, K)."""
+    d_inv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-20))
     Hs = H * d_inv[:, None] * d_inv[None, :]
-    L, info = torch.linalg.cholesky_ex(_add_diag(Hs, jitter))
-    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    L = cholesky_or_nan(_add_diag(Hs, jitter))
 
     def tri_solve(b):
-        y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
-        return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+        y = torch.linalg.solve_triangular(L, b, upper=False)
+        return torch.linalg.solve_triangular(L.T, y, upper=True)
 
-    bs = g * d_inv
+    bs = (g if g.ndim == 2 else g[:, None]) * d_inv[:, None]
     x = tri_solve(bs)
     for _ in range(refine_iters):
         x = x + tri_solve(bs - Hs @ x)
-    return x * d_inv
+    x = x * d_inv[:, None]
+    return x if g.ndim == 2 else x[:, 0]
 
 
 def solve_dense_gn(

@@ -12,8 +12,10 @@ reads back one number, the candidate's error; the accept/reject decision
 and the lambda, stall and convergence bookkeeping then run on the host in
 the solve's floating type, so every comparison rounds as the JAX loop's did.
 
-Only the dense linear solver is ported so far; the Schur, banded and CG
-paths are listed in ROADMAP.md.
+The default linear solver is the landmark Schur complement with velocity
+elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
+reduced solve; ``linear_solver="dense"`` factors the whole tangent space.
+The banded reduced solver is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from uslam_tpu_torch.graph.builder import GraphArrays
 from uslam_tpu_torch.graph.values import Values, values_retract
 from uslam_tpu_torch.solvers.dense import assemble_dense_with_landmarks, solve_dense_gn
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
+from uslam_tpu_torch.solvers.schur import solve_schur
 
 
 class LMStats(NamedTuple):
@@ -50,12 +53,10 @@ def optimize_lm(
     cfg: SolverConfig = SolverConfig(),
     huber_delta: float | None = None,
 ) -> tuple[Values, LMStats]:
-    """Run LM to convergence with the dense linear solver."""
-    if cfg.reduced_solver == "banded" or cfg.linear_solver != "dense":
+    """Run LM to convergence."""
+    if cfg.reduced_solver == "banded":
         raise NotImplementedError(
-            f"linear_solver={cfg.linear_solver!r}, reduced_solver="
-            f"{cfg.reduced_solver!r}: only linear_solver='dense' is ported "
-            "(Schur, banded and CG solvers: see ROADMAP.md)"
+            "reduced_solver='banded' is not ported (see ROADMAP.md)"
         )
     n, m = initial.num_poses, initial.num_landmarks
     # Host-side scalars in the solve's float type, so comparisons round as
@@ -80,6 +81,17 @@ def optimize_lm(
     jitter = cfg.cholesky_jitter if floored_diag else max(cfg.cholesky_jitter, 1e-7)
 
     def solve(lin, lam):
+        if cfg.linear_solver == "schur":
+            return solve_schur(
+                lin, graph.stereo, n, m, float(lam),
+                cg=cfg.reduced_solver == "cg",
+                cg_iters=cfg.cg_max_iterations,
+                cg_tol=cfg.cg_tol,
+                refine_iters=cfg.refine_iters,
+                jitter=jitter,
+                diag_damping=diag_damping,
+                eliminate_velocities=cfg.eliminate_velocities,
+            )
         H, g = assemble_dense_with_landmarks(
             lin, graph.stereo.cam_idx, graph.stereo.lm_idx, n, m
         )
