@@ -17,8 +17,10 @@ Phases, each of which raises (exit code != 0) on failure:
    warm-up, with the device kept busy while the host enqueues them
    (FAST+Harris: the 50 MB L2 flushed before every launch, as the time of
    N flush+kernel pairs less that of N flushes), beside its bound (the
-   larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s).
-   Then a torch.profiler breakdown of one front-end chunk's device time.
+   larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s). The
+   same at the online path's per-keyframe shapes: FAST+Harris on one
+   stereo pair at each level, Hamming on its 2 matrices of 48x48. Then a
+   torch.profiler breakdown of one front-end chunk's device time.
 4. slice: ``run_sequence`` with the default ``UslamConfig()`` (Schur +
    velocity elimination) on a rendered 20 s synthetic dive (100 stereo
    keyframes at 1920x1080, 200 landmarks, 200 Hz IMU); checks the launch
@@ -39,6 +41,18 @@ Phases, each of which raises (exit code != 0) on failure:
    solver and the polish (at most 2 iterations, as bench.py runs it, then
    the default 12); its ATEs against ground truth and the DVL odometry,
    and its LM-iteration profile.
+8. online: the first ``ONLINE_SECONDS`` of phase 3's dive (uint8 frames)
+   streamed message by message through ``OnlineSlam(UslamConfig(),
+   window=10, solve_during_fill=False)`` three times: (a) the host
+   smoother with the per-frame front end, (b) ``pipelined=True`` (fused
+   front end and window step on the device), (c) ``device_resident=True``.
+   Checks 3 fast_harris and 1 hamming launches per keyframe on each pass,
+   equal keyframe counts, no pending keyframe after ``flush()``, each
+   ATE within ``ONLINE_ATE_VS_ODOM`` of the DVL odometry's and (b) within
+   ``ONLINE_DIVERGENCE_M`` of (a); prints per-keyframe host ms (median,
+   p90) of the steady keyframes, the timing split, LM iterations, one
+   steady keyframe under torch.profiler, and the window's landmarks by
+   observation count.
 
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -84,6 +98,17 @@ FAST_HARRIS_OPS_PER_PX = 92
 # it must agree with it exactly (tolerance 0) on pixels at least BORDER px
 # inside the border, where the versions differ (wrap vs clamp).
 BORDER = 5
+# Phase 8: the online stream's first seconds (5 keyframes per second), the
+# window, and which steady keyframe goes under the profiler.
+ONLINE_SECONDS = 4.0
+ONLINE_WINDOW = 10
+ONLINE_PROFILED_STEADY = 3
+# Each pass's ATE may reach this multiple of the DVL odometry's on the same
+# keyframes (tests/test_fixed_lag.py:133-134); the pipelined pass may
+# diverge from the host pass by this much, the JAX package's bound between
+# its fused and split paths (tests/test_online_fused.py:87).
+ONLINE_ATE_VS_ODOM = 1.2
+ONLINE_DIVERGENCE_M = 0.4
 
 
 def log(msg: str) -> None:
@@ -528,6 +553,160 @@ def solve_1k() -> dict:
     }
 
 
+def online_events(seq, t_end: float) -> list:
+    """Every sensor message of ``seq`` up to ``t_end``, in time order
+    (tests/test_online_fused.py's stream): (kind, t, index)."""
+    events = (
+        [("imu", t, i) for i, t in enumerate(seq.imu_t)]
+        + [("press", t, i) for i, t in enumerate(seq.pressure_t)]
+        + [("pose", t, i) for i, t in enumerate(seq.dvl_pose_t)]
+        + [("twist", t, i) for i, t in enumerate(seq.dvl_twist_t)]
+        + [("frame", t, i) for i, t in enumerate(seq.image_t)]
+    )
+    events.sort(key=lambda e: e[1])
+    return [e for e in events if e[1] <= t_end]
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler, device activity only (a
+    keyframe runs ~10^5 host ops, whose records alone take the profiler a
+    minute to process): host wall ms with a synchronize, device ms, the
+    count of device kernels and copies, and the profiler's whole cost in s."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer")]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy": device_ms / wall_ms,
+            "kernels": len(dev) - len(copies), "copies": len(copies),
+            "profiler_s": time.perf_counter() - t_all}
+
+
+def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
+    """Stream ``events`` through ``OnlineSlam(cfg, window=ONLINE_WINDOW,
+    solve_during_fill=False, device="cuda", **mode)`` with the kernels'
+    launch counts set to 0 just before; host ms of every keyframe's
+    ``add_stereo_frame``, one steady keyframe under the profiler."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.online import OnlineSlam
+
+    online = OnlineSlam(cfg, window=ONLINE_WINDOW, solve_during_fill=False, device="cuda", **mode)
+    call_ms, profiled = {}, None
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for kind, t, i in events:
+        if kind == "imu":
+            online.add_imu(t, seq.imu_acc[i], seq.imu_gyro[i])
+        elif kind == "press":
+            online.add_pressure(t, seq.pressure_mbar[i])
+        elif kind == "pose":
+            online.add_dvl_pose(t, seq.dvl_pose_quat[i], seq.dvl_pose_pos[i])
+        elif kind == "twist":
+            online.add_dvl_twist(t, seq.dvl_twist_vel[i])
+        elif online.keyframes == ONLINE_WINDOW + 1 + ONLINE_PROFILED_STEADY and profiled is None:
+            profiled = profile_call(lambda: online.add_stereo_frame(t, left[i], right[i]))
+        else:
+            k, ts = online.keyframes, time.perf_counter()
+            online.add_stereo_frame(t, left[i], right[i])
+            if online.keyframes > k:
+                call_ms[k] = (time.perf_counter() - ts) * 1e3
+    online.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    traj = online.trajectory()
+    n = len(traj)
+    # Steady state: from the second marginalization on (keyframe
+    # ONLINE_WINDOW + 1), where every mode runs its own steady step.
+    steady = [ms for k, ms in call_ms.items() if k > ONLINE_WINDOW]
+    timings = online.timings[ONLINE_WINDOW + 1:]
+    keys = ("frontend_ms", "triangulate_ms", "graph_ms", "record_ms", "solve_ms", "fetch_ms",
+            "pair_wait_ms", "dispatch_ms", "harvest_wait_ms", "harvest_ms")
+    split = {k: float(np.median([e[k] for e in timings])) for k in keys
+             if timings and all(k in e for e in timings)}
+    iters = [e["lm_iters"] for e in timings if "lm_iters" in e]
+    gt, odom = seq.gt_pos[:n], seq.dvl_pose_pos[:n]
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+
+    out = {
+        "label": label, "online": online, "traj": traj, "keyframes": online.keyframes,
+        "launches": launches, "wall_s": wall, "steady": len(steady),
+        "median_ms": float(np.median(steady)), "p90_ms": float(np.percentile(steady, 90)),
+        "lm_iters": float(np.median(iters)) if iters else float("nan"),
+        "ate": ate_rmse(traj, gt), "ate_odom": ate_rmse(odom, gt), "profiled": profiled,
+    }
+    log(f"online pass {label}: {out['keyframes']} keyframes ({out['steady']} steady, one more "
+        f"profiled) in {wall!r} s = {out['keyframes'] / wall!r} keyframes/s; steady ms per "
+        f"keyframe median {out['median_ms']!r}, p90 {out['p90_ms']!r}; launches {launches}")
+    log(f"  steady split, medians (ms): {split}; LM iterations, median {out['lm_iters']!r} "
+        f"(max {max(iters) if iters else None})")
+    log(f"  ATE vs ground truth {out['ate']!r} m; DVL odometry {out['ate_odom']!r} m "
+        f"(same {n} keyframes); host ms of every timed keyframe: "
+        f"{[round(ms, 1) for ms in call_ms.values()]}")
+    if profiled:
+        log(f"  one steady keyframe under torch.profiler: host wall {profiled['wall_ms']!r} ms, "
+            f"device {profiled['device_ms']!r} ms (busy {profiled['busy']!r}), "
+            f"{profiled['kernels']} kernels, {profiled['copies']} copies (the profiled call took "
+            f"{profiled['profiler_s']!r} s in all)")
+    return out
+
+
+def online_phase(seq, cfg) -> dict:
+    """Phase 8: the first ONLINE_SECONDS of the phase-3 dive streamed
+    through OnlineSlam on the card: (a) the host smoother with the
+    per-frame front end, (b) pipelined (fused, device-resident), (c) the
+    split device-resident path."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    events = online_events(seq, ONLINE_SECONDS)
+    frames = sorted({i for kind, _, i in events if kind == "frame"})
+    # uint8 frames, as a camera gives them.
+    left = {i: np.clip(seq.images_left[i], 0, 255).astype(np.uint8) for i in frames}
+    right = {i: np.clip(seq.images_right[i], 0, 255).astype(np.uint8) for i in frames}
+    log(f"online stream: {ONLINE_SECONDS} s, {len(frames)} stereo frames "
+        f"{left[frames[0]].shape} uint8, {len(events)} messages; window {ONLINE_WINDOW}, "
+        f"solve_during_fill=False, max_update_iters=4")
+    a = online_pass("(a) host smoother", cfg, seq, events, left, right)
+    g, _ = a["online"].smoother._window_graph()
+    per_lm = np.bincount(g.stereo.lm_obs_mask.sum(1).long().cpu().numpy())
+    log(f"  (a)'s last window: landmarks by observation count "
+        f"{dict((k, int(c)) for k, c in enumerate(per_lm) if k and c)}")
+    b = online_pass("(b) pipelined", cfg, seq, events, left, right, pipelined=True)
+    c = online_pass("(c) device-resident", cfg, seq, events, left, right, device_resident=True)
+    passes = (a, b, c)
+    div = {p["label"]: float(np.linalg.norm(p["traj"] - a["traj"], axis=1).max()) for p in (b, c)}
+    log(f"  divergence from (a), max over keyframes (m): {div}")
+    log(f"online phase: {time.perf_counter() - t_phase!r} s")
+    checks = {}
+    for p in passes:
+        name = p["label"]
+        checks[f"online {name}: fast_harris 3 and hamming 1 launches per keyframe"] = (
+            p["launches"] == {"fast_harris": 3 * p["keyframes"], "hamming": p["keyframes"]})
+        checks[f"online {name}: trajectory finite, one row per keyframe"] = (
+            p["traj"].shape == (p["keyframes"], 3) and bool(np.isfinite(p["traj"]).all()))
+        checks[f"online {name}: ATE <= {ONLINE_ATE_VS_ODOM} x the DVL odometry's"] = (
+            p["ate"] <= ONLINE_ATE_VS_ODOM * p["ate_odom"])
+        checks[f"online {name}: at least 8 steady keyframes"] = p["steady"] >= 8
+    checks["online: keyframes equal across passes"] = len({p["keyframes"] for p in passes}) == 1
+    checks["online (b): no pending keyframe after flush()"] = b["online"]._pending is None
+    checks["online (b): fused steps ran"] = any(e.get("pipelined") for e in b["online"].timings)
+    checks[f"online (b) within {ONLINE_DIVERGENCE_M} m of (a)"] = div[b["label"]] < ONLINE_DIVERGENCE_M
+    return {"checks": checks, "launches": a["launches"], "passes": passes}
+
+
 def main() -> int:
     if not (ROOT / "uslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -637,7 +816,32 @@ def main() -> int:
     log(f"  hamming {tuple(real[0].shape)} x {tuple(real[1].shape)}: kernel {hm_ms!r} ms, "
         f"bound {hm_bound!r} ms ({hm_bound_by}), share {hm_bound / hm_ms!r}, "
         f"plain {hm_plain_ms!r} ms")
-    del rendered, rendered_levels, textured_levels, kp, real, flush_buf
+
+    # The online path's per-keyframe shapes: one stereo pair (2 images at
+    # each level) and one (2, 48, 8) x (2, 48, 8) Hamming launch (stereo and
+    # temporal matrices).
+    pair_levels = [im[:2].contiguous() for im in rendered_levels]
+    real_pair = (torch.cat([left[1:2], left[1:2]]), torch.cat([right[1:2], left[:1]]))
+    fh.update(max_abs_err=max(fh["max_abs_err"], check_fast_harris(
+        [(f"rendered pair L{i}", im) for i, im in enumerate(pair_levels)])["max_abs_err"]))
+    hm.update(max_abs_err=max(hm["max_abs_err"], check_hamming(
+        [("rendered pair", real_pair)])["max_abs_err"]))
+    kf_ms = [cuda_ms(lambda im=im: kernels.fast_harris(im, 10.0), KERNEL_REPS,
+                     flush=flush_buf.zero_) for im in pair_levels]
+    kf_bound = [bound_ms(im.numel() * 9, im.numel() * FAST_HARRIS_OPS_PER_PX)[0]
+                for im in pair_levels]
+    for im, ms, b_ms in zip(pair_levels, kf_ms, kf_bound):
+        log(f"  fast_harris per keyframe {tuple(im.shape)} (L2 flushed): kernel {ms!r} ms, "
+            f"bound {b_ms!r} ms, share {b_ms / ms!r}")
+    log(f"  fast_harris per keyframe (3 launches): kernel {sum(kf_ms)!r} ms, bound "
+        f"{sum(kf_bound)!r} ms, share {sum(kf_bound) / sum(kf_ms)!r}")
+    hm_kf_ms = cuda_ms(lambda: kernels.hamming(*real_pair), KERNEL_REPS)
+    n_kf = real_pair[0].shape[0] * real_pair[0].shape[1] * real_pair[1].shape[1]
+    hm_kf_bound, _ = bound_ms((real_pair[0].numel() + real_pair[1].numel()) * 4 + n_kf * 4,
+                              n_kf * 8 * 3)
+    log(f"  hamming per keyframe {tuple(real_pair[0].shape)} x {tuple(real_pair[1].shape)}: "
+        f"kernel {hm_kf_ms!r} ms, bound {hm_kf_bound!r} ms, share {hm_kf_bound / hm_kf_ms!r}")
+    del rendered, rendered_levels, textured_levels, pair_levels, kp, real, real_pair, flush_buf
     torch.cuda.empty_cache()
     profile_chunk(seq, cfg)
 
@@ -715,6 +919,11 @@ def main() -> int:
     # ---- 7. the solver at its published scale: the 1k-pose batch solve -----
     checks.update(solve_1k())
 
+    # ---- 8. the online stream: OnlineSlam on the card ----------------------
+    online = online_phase(seq, cfg)
+    checks.update(online["checks"])
+    online_launches = online["launches"]
+
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
     )
@@ -736,6 +945,9 @@ def main() -> int:
                 "bound_ms": fh_bound_ms, "bound_by": fh_bound[0][1],
                 "share": fh_bound_ms / sum(fh_ms),
                 "library_ms": None,  # no PyTorch call computes FAST-9 + Harris
+                # The online path (phase 8, pass (a)): one stereo pair per keyframe.
+                "online_launches": online_launches["fast_harris"],
+                "keyframe_ms": sum(kf_ms), "keyframe_bound_ms": sum(kf_bound),
             },
             {
                 "name": "hamming", "route": "cuda",
@@ -746,6 +958,8 @@ def main() -> int:
                 "ms": hm_ms, "plain_ms": hm_plain_ms,
                 "bound_ms": hm_bound, "bound_by": hm_bound_by, "share": hm_bound / hm_ms,
                 "library_ms": None,  # no PyTorch call computes packed-word Hamming
+                "online_launches": online_launches["hamming"],
+                "keyframe_ms": hm_kf_ms, "keyframe_bound_ms": hm_kf_bound,
             },
         ]
     }

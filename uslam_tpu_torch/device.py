@@ -16,6 +16,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def cast_tree(tree, dtype: torch.dtype, device):
     """Container tree (NamedTuples of tensors) on ``device`` with every
     floating leaf cast to ``dtype``; integer leaves keep their type."""

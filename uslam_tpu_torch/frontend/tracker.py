@@ -1,10 +1,12 @@
-"""Stereo front end with persistent track ids, chunked offline path.
+"""Stereo front end with persistent track ids: the chunked offline path and
+the per-frame online path.
 
 Port of the ORB path of :mod:`uslam_tpu.frontend.tracker`: per chunk of C
-stereo pairs, ORB on all 2C images, stereo matching, temporal matching
-against the previous left frame, gyro rotation compensation and 1-point
-translation RANSAC, all batched over the chunk; then host-side id
-interning and the nodelet's normalized [-1, 1] output contract.
+stereo pairs (C = 1 per frame), ORB on all 2C images, stereo matching,
+temporal matching against the previous left frame, gyro rotation
+compensation and 1-point translation RANSAC, all batched over the chunk;
+then host-side id interning and the nodelet's normalized [-1, 1] output
+contract.
 
 Randomness is explicit: the RANSAC hypothesis indices are one (H,) index
 tensor, drawn once per front end from a seeded ``torch.Generator``
@@ -116,6 +118,17 @@ def orb_chunk_step(pairs, prev: Keypoints, cfg: FrontendConfig, rotvecs, kvec, h
     return kp_l, kp_r, sm.idx, sm.mask, torch.where(inlier, tm.idx, -1)
 
 
+def orb_pair_step(pair, prev: Keypoints, cfg: FrontendConfig, rotvec, kvec, hyp_idx):
+    """One stereo pair (2, H, W) float32 -> (kp_left, kp_right, stereo idx,
+    stereo mask, temporal idx or -1): :func:`orb_chunk_step` with C = 1,
+    so one ``fast_harris`` launch per pyramid level and one ``hamming``
+    launch for the stereo and temporal matrices. ``rotvec`` (3,): gyro
+    rotation since ``prev``'s frame, zeros to skip the warp."""
+    out = orb_chunk_step(pair[None], prev, cfg, rotvec[None], kvec, hyp_idx)
+    kp_l, kp_r = (Keypoints(*(a[0] for a in kp)) for kp in out[:2])
+    return (kp_l, kp_r, *(a[0] for a in out[2:]))
+
+
 class StereoFrontend:
     """Stateful per-sequence wrapper around :func:`orb_chunk_step`.
 
@@ -147,13 +160,18 @@ class StereoFrontend:
                                        device=self.device)
         self.kvec = torch.tensor([cam.fx, cam.fy, cam.cx, cam.cy], dtype=torch.float32,
                                  device=self.device)
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget the previous frame and restart the ids at 0."""
+        K, dev = self.cfg.max_features, self.device
         self._prev = Keypoints(
-            xy=torch.zeros((K, 2), device=self.device),
-            score=torch.zeros(K, device=self.device),
-            angle=torch.zeros(K, device=self.device),
-            level=torch.zeros(K, dtype=torch.int32, device=self.device),
-            desc=torch.zeros((K, 8), dtype=torch.int32, device=self.device),
-            mask=torch.zeros(K, dtype=torch.bool, device=self.device),
+            xy=torch.zeros((K, 2), device=dev),
+            score=torch.zeros(K, device=dev),
+            angle=torch.zeros(K, device=dev),
+            level=torch.zeros(K, dtype=torch.int32, device=dev),
+            desc=torch.zeros((K, 8), dtype=torch.int32, device=dev),
+            mask=torch.zeros(K, dtype=torch.bool, device=dev),
         )
         self._prev_ids: np.ndarray | None = None
         self._next_id = 0
@@ -187,6 +205,26 @@ class StereoFrontend:
                 self._next_id += 1
         self._prev_ids = ids
         return ids
+
+    def process(self, left, right, t: float, gyro_rotvec=None) -> FeatureFrame:
+        """One rectified stereo pair (numpy (H, W), any real dtype) ->
+        FeatureFrame. The pair goes up as one (2, H, W) copy in its own
+        dtype (uint8 frames: a quarter of float32's bytes) and is cast on
+        the device. ``gyro_rotvec`` (3,): integrated gyro rotation since the
+        previous frame; None or zeros skip the warp."""
+        pair = torch.from_numpy(np.stack([np.asarray(left), np.asarray(right)]))
+        rv = np.zeros(3, np.float32) if gyro_rotvec is None else gyro_rotvec
+        kp_l, kp_r, sm_idx, sm_mask, tm_idx = orb_pair_step(
+            pair.to(self.device).to(torch.float32), self._prev, self.cfg,
+            torch.as_tensor(np.asarray(rv, np.float32), device=self.device),
+            self.kvec, self.ransac_idx,
+        )
+        tm_idx, stereo_ok, sm_idx, xy_l_all, xy_r_raw = (
+            a.cpu().numpy() for a in (tm_idx, sm_mask, sm_idx, kp_l.xy, kp_r.xy)
+        )
+        ids = self._intern_ids(stereo_ok, tm_idx)
+        self._prev = kp_l
+        return self._emit_frame(t, ids, xy_l_all, xy_r_raw, sm_idx)
 
     def process_chunk(
         self, lefts, rights, ts, gyro_rotvecs=None, pad_to: int | None = None

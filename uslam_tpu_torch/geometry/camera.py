@@ -13,7 +13,11 @@ import numpy as np
 import torch
 
 from uslam_tpu_torch.config import CameraConfig
-from uslam_tpu_torch.geometry.se3 import Pose3, pose_transform_point_inverse
+from uslam_tpu_torch.geometry.se3 import (
+    Pose3,
+    pose_transform_point,
+    pose_transform_point_inverse,
+)
 
 
 class StereoCamera(NamedTuple):
@@ -50,6 +54,24 @@ def project_world_point(
 ) -> torch.Tensor:
     """The stereo factor's forward model: world point through a body pose."""
     return stereo_project(cam, pose_transform_point_inverse(pose_world_body, p_world))
+
+
+def stereo_backproject(cam: StereoCamera, meas: torch.Tensor) -> torch.Tensor:
+    """(uL, uR, v) (..., 3) -> camera-frame point (..., 3), in the tensor's
+    dtype: W = |uR - uL| / baseline, x = (uL - cx) / W, y = (v - cy) / W,
+    z = f_mean / W (batch.py:156-163 with the disparity's magnitude)."""
+    uL, uR, v = meas.unbind(-1)
+    W = torch.clamp(torch.abs(uR - uL), min=1e-6) / cam.baseline
+    f_mean = 0.5 * (cam.fx + cam.fy)
+    return torch.stack([(uL - cam.cx) / W, (v - cam.cy) / W, f_mean / W], dim=-1)
+
+
+def triangulate_stereo(
+    cam: StereoCamera, cam_pose_world: Pose3, meas: torch.Tensor
+) -> torch.Tensor:
+    """Back-project stereo measurements and move them into the world by the
+    camera's pose world_T_cam."""
+    return pose_transform_point(cam_pose_world, stereo_backproject(cam, meas))
 
 
 def quat_to_matrix_np(q: np.ndarray) -> np.ndarray:

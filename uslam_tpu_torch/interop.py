@@ -2,9 +2,10 @@
 
 Containers are matched by class name and field name: a JAX ``Values``,
 ``GraphArrays`` (with ``Priors``, ``ImuIntervals``, ``ImuIntervalData``,
-``DvlMeasurements``, ``StereoObservations``), ``Keypoints`` or
-``Linearization`` taken to numpy (``jax.device_get``) becomes the port's
-container of the same name, and back. The port's own numpy trees (what
+``DvlMeasurements``, ``StereoObservations``), ``Keypoints``,
+``Linearization``, ``DeviceWindowState`` or ``DeviceWindowRecord`` taken to
+numpy (``jax.device_get``) becomes the port's container of the same name,
+and back. The port's own numpy trees (what
 :func:`uslam_tpu_torch.graph.packing.pack_sequence` returns) go through the
 same :func:`to_port` to reach the device.
 
@@ -42,12 +43,24 @@ _CONTAINERS = {
 }
 
 
+def _container(name: str):
+    """The port's container class called ``name``. The fixed-lag window's
+    classes are looked up at first use: their module imports the pipeline,
+    which imports this one."""
+    if name not in _CONTAINERS:
+        from uslam_tpu_torch.solvers import fixed_lag
+
+        for cls in (fixed_lag.DeviceWindowState, fixed_lag.DeviceWindowRecord):
+            _CONTAINERS[cls.__name__] = cls
+    return _CONTAINERS[name]
+
+
 def to_port(tree, device):
     """Numpy container tree (JAX or port class) -> the port's container of
     tensors on ``device``, each leaf keeping its dtype (uint32 becomes an
     int32 bit-view)."""
     if hasattr(tree, "_fields"):
-        cls = _CONTAINERS[type(tree).__name__]
+        cls = _container(type(tree).__name__)
         return cls(*(to_port(getattr(tree, f), device) for f in cls._fields))
     a = np.asarray(tree, order="C")
     if a.dtype == np.uint32:

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from uslam_tpu_torch.config import DEFAULT_CONFIG, SolverConfig, UslamConfig
-from uslam_tpu_torch.device import cast_tree, resolve_device
+from uslam_tpu_torch.device import cast_tree, resolve_device, synchronize
 from uslam_tpu_torch.eval.graphviz import save_graph_dot as _save_dot
 from uslam_tpu_torch.eval.metrics import ate_rmse, mse_reference_compat, trajectory_from_values
 from uslam_tpu_torch.eval.plot import plot_trajectory_3d
@@ -75,11 +75,6 @@ def run_solver(graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
     return optimize_lm(
         graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg, huber_delta
     )
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class AUVSlam:
@@ -172,7 +167,7 @@ class AUVSlam:
         args = (self.cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity, cfg.solver)
         t0 = time.perf_counter()
         values, stats = run_solver(graph, initial, *args, cfg.noise.stereo_huber_delta)
-        _sync(self.device)
+        synchronize(self.device)
         polish_info = None
         if cfg.solver.f64_polish:
             t1 = time.perf_counter()
@@ -180,7 +175,7 @@ class AUVSlam:
                 graph, values, *args, huber_delta=cfg.noise.stereo_huber_delta,
                 device=self.device,
             )
-            _sync(self.device)
+            synchronize(self.device)
             polish_info["polish_seconds"] = time.perf_counter() - t1
         odom = np.stack(self.odom_compare) if self.odom_compare else np.zeros((0, 3))
         result = SlamResult(
