@@ -53,6 +53,26 @@ Phases, each of which raises (exit code != 0) on failure:
    p90) of the steady keyframes, the timing split, LM iterations, one
    steady keyframe under torch.profiler, and the window's landmarks by
    observation count.
+9. survey: bench.py's scaling sweep (bench.py:517-628) on the banded
+   solver: a survey trajectory of 2000, then 4000 poses (precomputed
+   features, packed by the port), ``reduced_solver="banded"`` with band
+   width and correction window measured off the graph, bench.py's 1k
+   ``SolverConfig``; prints the band, the LM, ATEs (observability-limited,
+   as bench.py marks them), per-iteration host ms, peak device memory, the
+   2-iteration banded float64 polish and ``cost_vs_f64_opt`` (final error /
+   polished error), which must be <= ``COST_VS_F64_OPT`` (bench.py's alert,
+   bench.py:700). At 2000 poses one banded step is held to the Schur step
+   (float64 both) with each one's peak memory, and on a short long-track
+   survey (band_w ~ N, chunk window F < 2 band_w) too. At each size the
+   per-frame sum of the band assembly (``bands.frame_sum``) must make no
+   host sync and repeat bit-identically.
+10. KLT: ``run_sequence`` with ``FrontendConfig(temporal_tracker="klt")`` on
+   the first ``ONLINE_SECONDS`` of phase 3's dive (21 keyframes), beside the
+   ORB front end on the same frames: launch counts (3 fast_harris and 1
+   hamming per frame under KLT), landmarks observed in >= 2 keyframes, and
+   ATE within ``ONLINE_ATE_VS_ODOM`` of the DVL odometry's. ``klt_track``
+   on the card is held to the CPU on the clip's first two frames and on a
+   copy shifted by a known sub-pixel offset, which it must recover.
 
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -109,6 +129,23 @@ ONLINE_PROFILED_STEADY = 3
 # its fused and split paths (tests/test_online_fused.py:87).
 ONLINE_ATE_VS_ODOM = 1.2
 ONLINE_DIVERGENCE_M = 0.4
+# Phase 9: bench.py's scaling sizes, its certificate's polish iterations
+# and alert (bench.py:522,661,700), and the banded step's tolerance against
+# the Schur step in float64 (tests/test_torch_banded.py).
+SURVEY_POSES = (2000, 4000)
+SURVEY_POLISH_ITERS = 2
+COST_VS_F64_OPT = 1.05
+BANDED_STEP_RTOL = 1e-7
+# bands.frame_sum against an index_add_ of the same float64 values: both
+# are sums of the same terms in another order.
+FRAME_SUM_RTOL = 1e-12
+# Phase 10: klt_track on the card against the CPU, the CPU-vs-JAX tolerance
+# of tests/test_torch_klt.py (window sums reduced in another float32
+# order); and the known sub-pixel offset (x, y) of the shifted copy, with
+# the median error allowed against it.
+KLT_CARD_VS_CPU_PX = 1e-3
+KLT_SHIFT = (-2.3, 3.6)
+KLT_SHIFT_PX = 0.05
 
 
 def log(msg: str) -> None:
@@ -707,6 +744,389 @@ def online_phase(seq, cfg) -> dict:
     return {"checks": checks, "launches": a["launches"], "passes": passes}
 
 
+def _rel(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
+
+
+def _peak_mib(fn):
+    """(fn's output, peak device MiB allocated while it ran)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**20
+
+
+def banded_vs_schur(graph, values, cfg, label: str, corr_lm_chunk: int = 128) -> float:
+    """One banded step against the Schur step of the same float64
+    linearization and damping (lambda_initial, Marquardt), at the polish's
+    rounding-level jitter 1e-12 and 2 refinements (tests/test_banded.py's
+    identity); the difference at the LM's own jitter is printed beside it.
+    Returns the relative difference at jitter 1e-12."""
+    import torch
+
+    from uslam_tpu_torch.device import cast_tree
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.solvers import banded, schur
+    from uslam_tpu_torch.solvers.linearize import linearize_graph
+
+    sc = cfg.solver
+    n, n_lm = values.num_poses, values.num_landmarks
+    g64 = cast_tree(graph, torch.float64, "cuda")
+    cam64 = cast_tree(StereoCamera.from_config(cfg.camera, device="cuda"), torch.float64, "cuda")
+    lin = linearize_graph(g64, cast_tree(values, torch.float64, "cuda"), cam64,
+                          cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    bw = banded.measure_band_width(graph.stereo)
+    cw = banded.measure_corr_window(graph.stereo, lm_chunk=corr_lm_chunk)
+    lam = sc.lambda_initial
+    out = {}
+    for jitter, b_ref, s_ref in ((1e-12, 2, 2), (sc.cholesky_jitter, sc.banded_refine_iters,
+                                                  sc.refine_iters)):
+        d_b, peak_b = _peak_mib(lambda: banded.solve_schur_banded(
+            lin, g64.stereo, n, n_lm, lam, band_w=bw, corr_window=cw, corr_lm_chunk=corr_lm_chunk,
+            jitter=jitter, refine_iters=b_ref, diag_damping=True))
+        d_s, peak_s = _peak_mib(lambda: schur.solve_schur(
+            lin, g64.stereo, n, n_lm, lam, jitter=jitter, refine_iters=s_ref, diag_damping=True,
+            eliminate_velocities=sc.eliminate_velocities))
+        out[jitter] = _rel(d_b, d_s)
+        log(f"{label}: banded vs Schur step (float64, lambda {lam}, jitter {jitter}, refinements "
+            f"{b_ref} / {s_ref}; N={n}, band_w {bw}, window {cw} of {corr_lm_chunk}-landmark "
+            f"chunks): relative difference {out[jitter]!r}; peak device MiB banded {peak_b!r}, "
+            f"Schur {peak_s!r}")
+        del d_b, d_s
+    return out[1e-12]
+
+
+def frame_sum_check(stereo, n: int, label: str) -> dict:
+    """``bands.frame_sum`` as the band assembly calls it, at a graph's
+    observations with (F, 42) float64 values, the stereo band's width: no
+    host synchronization (the device-resident window step must make none),
+    two calls bit-identical, and within FRAME_SUM_RTOL of an
+    ``index_add_`` of the unmasked rows; its device time beside the chunked
+    (N, 8192) one-hot GEMM over every row that it replaced."""
+    import warnings
+
+    import torch
+
+    from uslam_tpu_torch.solvers.bands import frame_sum, observed_frames
+
+    frames = stereo.cam_idx.long()
+    kept = observed_frames(stereo.cam_idx, stereo.mask, n)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    vals = torch.randn((frames.numel(), 42), dtype=torch.float64, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            a = frame_sum(vals, kept, n)
+            b = frame_sum(vals, kept, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # What the mode reports per synchronizing call (the mode also warns once
+    # that it is a prototype, in words of its own).
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    ref = vals.new_zeros((n, 42)).index_add_(0, frames, vals * stereo.mask[:, None])
+    rel = float((a - ref).abs().max() / ref.abs().max())
+    rows = torch.arange(n, device="cuda")
+
+    def onehot():
+        out = vals.new_zeros((n, 42))
+        for s in range(0, frames.numel(), 8192):
+            hot = (frames[None, s : s + 8192] == rows[:, None]).to(vals.dtype)
+            out = out + hot @ vals[s : s + 8192]
+        return out
+
+    ms, onehot_ms = cuda_ms(lambda: frame_sum(vals, kept, n), 10), cuda_ms(onehot, 10)
+    log(f"  {label} frame_sum, {int(stereo.mask.sum())} of F={frames.numel()} observations onto "
+        f"N={n} frames: {ms!r} ms (chunked one-hot GEMM over all F {onehot_ms!r} ms); host syncs "
+        f"{len(syncs)} {syncs}; relative to index_add_ {rel!r}")
+    return {
+        f"{label}: frame_sum makes no host sync, repeats bit-identically, = index_add_": (
+            not syncs and torch.equal(a, b) and rel < FRAME_SUM_RTOL),
+    }
+
+
+def survey_solve(n_poses: int) -> dict:
+    """bench.py's scaling entry (bench.py:541-628) at ``n_poses`` on the card,
+    then its float64 certificate (bench.py:630-700) by the banded polish."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.config import SolverConfig, UslamConfig
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import AUVSlam, banded_solver_config
+    from uslam_tpu_torch.solvers.banded import auto_panel, solve_schur_banded
+    from uslam_tpu_torch.solvers.linearize import linearize_graph
+    from uslam_tpu_torch.solvers.polish import polish_f64
+
+    t0 = time.perf_counter()
+    seq = generate_synthetic_sequence(SyntheticSpec(
+        trajectory="survey", duration=n_poses / 5.0, keyframe_rate=5.0,
+        num_landmarks=max(512, n_poses), omega=0.15, max_feature_depth=10.0,
+        odom_drift_rate=0.02, feature_noise_px=0.3, seed=0,
+    ))
+    gen_s = time.perf_counter() - t0
+    cfg = UslamConfig(solver=SolverConfig(
+        max_iterations=50, plateau_patience=3, relative_error_tol=1e-5, reduced_solver="banded"))
+    t0 = time.perf_counter()
+    graph_np, initial_np, odom, _ = pack_sequence(seq, cfg)
+    pack_s = time.perf_counter() - t0
+    graph, initial = to_port(graph_np, "cuda"), to_port(initial_np, "cuda")
+    slam = AUVSlam(cfg, device="cuda")
+    slam._graph_cache = (graph, initial)
+    slam.odom_compare = list(odom)
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    r, peak_mib = _peak_mib(slam.solve)
+    m = r.metrics
+    n, bw, cw = m["num_poses"], m["band_width"], m["banded_corr_window"]
+    gt = seq.gt_pos[:n]
+    ate_init = ate_rmse(initial_np.pose_trans, gt)
+    ate_final = ate_rmse(r.trajectory, gt)
+    ate_odom = ate_rmse(r.odom_compare, gt)
+    # One LM iteration's two stages at the solution, host ms (median of 3).
+    cam = StereoCamera.from_config(cfg.camera, device="cuda")
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    scfg = banded_solver_config(cfg.solver, graph)
+    t_lin, lin = _median_ms(lambda: linearize_graph(graph, r.values, cam, *sig))
+    t_solve, _ = _median_ms(lambda: solve_schur_banded(
+        lin, graph.stereo, n, m["num_landmarks"], scfg.lambda_initial, band_w=bw,
+        corr_window=cw, jitter=scfg.cholesky_jitter, refine_iters=scfg.banded_refine_iters,
+        diag_damping=True))
+    del lin
+    t0 = time.perf_counter()
+    vals_pol, info = polish_f64(graph, r.values, cam, *sig, scfg,
+                                max_iters=SURVEY_POLISH_ITERS, device="cuda")
+    torch.cuda.synchronize()
+    polish_s = time.perf_counter() - t0
+    ate_pol = ate_rmse(vals_pol.pose_trans.cpu().numpy(), gt)
+    cost = m["final_error"] / max(info["polish_final_error"], 1e-30)
+    errors = (m["initial_error"], m["final_error"], info["polish_initial_error"],
+              info["polish_final_error"])
+    log(f"survey {n_poses} (bench.py:541-552 spec; made in {gen_s!r} s, packed in {pack_s!r} s): "
+        f"N={n} poses, M={m['num_landmarks']} landmark rows, {int(graph.stereo.mask.sum())} "
+        f"stereo observations, band_w {bw}, correction window {cw}, panel {auto_panel(bw)}")
+    log(f"  LM: {m['lm_iterations']} iterations, converged={m['converged']}, error "
+        f"{m['initial_error']!r} -> {m['final_error']!r}; solve {m['solve_seconds']!r} s; "
+        f"per iteration at the solution (host ms, median of 3): linearize {t_lin!r}, banded "
+        f"solve {t_solve!r}")
+    log(f"  peak device memory during the solve {peak_mib!r} MiB (graph and values before it: "
+        f"{base_mib!r} MiB)")
+    log(f"  ATE vs ground truth (observability-limited): initial {ate_init!r} -> final "
+        f"{ate_final!r} m; DVL odometry {ate_odom!r} m")
+    log(f"  banded float64 polish on the card, at most {SURVEY_POLISH_ITERS} iterations: "
+        f"{info['polish_iterations']} in {polish_s!r} s, error {info['polish_initial_error']!r} "
+        f"-> {info['polish_final_error']!r}, ATE {ate_pol!r} m; cost_vs_f64_opt {cost!r}")
+    if ate_pol > ate_final:
+        # VERDICT r5's open item: the JAX package's sweep let this pass
+        # silently. The cost is flat along the survey's weak modes, so the
+        # float64 optimum need not have the smaller ATE; reported, not failed.
+        log(f"  ALERT survey {n_poses}: polished ATE {ate_pol!r} m > final ATE {ate_final!r} m "
+            "(observability-limited)")
+    out = {
+        "n": n, "graph": graph, "values": r.values, "cfg": cfg, "cost": cost,
+        "checks": {
+            **frame_sum_check(graph.stereo, n, f"survey {n_poses}"),
+            f"survey {n_poses}: cost_vs_f64_opt <= {COST_VS_F64_OPT}": cost <= COST_VS_F64_OPT,
+            f"survey {n_poses}: LM and polish errors finite, final < initial":
+            all(math.isfinite(e) for e in errors) and m["final_error"] < m["initial_error"],
+            f"survey {n_poses}: trajectory finite": bool(np.isfinite(r.trajectory).all()),
+        },
+    }
+    del vals_pol
+    return out
+
+
+def survey_phase() -> dict:
+    """Phase 9: the survey sizes on the banded solver, the banded step held
+    to the Schur step at the first size, and the long-track a0 graph."""
+    import torch
+
+    from uslam_tpu_torch.config import UslamConfig
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.solvers.banded import measure_band_width, measure_corr_window
+
+    t_phase = time.perf_counter()
+    checks = {}
+    for i, n_poses in enumerate(SURVEY_POSES):
+        res = survey_solve(n_poses)
+        checks.update(res["checks"])
+        if i == 0:
+            rel = banded_vs_schur(res["graph"], res["values"], res["cfg"], f"survey {n_poses}")
+            checks[f"survey {n_poses}: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
+                rel < BANDED_STEP_RTOL)
+        del res
+        torch.cuda.empty_cache()
+    # A short survey seen to 15 m: every track spans nearly the whole run
+    # (band_w ~ N), and 4-landmark chunks observe windows F < 2 band_w, where
+    # the reference's diagonal shear once wrapped rows ("a0").
+    cfg = UslamConfig()
+    seq = generate_synthetic_sequence(SyntheticSpec(
+        trajectory="survey", duration=6.0, num_landmarks=48, max_feature_depth=15.0, seed=1))
+    g_np, v_np, _, _ = pack_sequence(seq, cfg)
+    graph, values = to_port(g_np, "cuda"), to_port(v_np, "cuda")
+    bw, cw = measure_band_width(graph.stereo), measure_corr_window(graph.stereo, lm_chunk=4)
+    rel = banded_vs_schur(graph, values, cfg, "long-track survey", corr_lm_chunk=4)
+    checks[f"long-track survey: band_w {bw} >= N-3 and window {cw} < 2 band_w (the a0 shape)"] = (
+        bw >= values.num_poses - 3 and cw < 2 * bw)
+    checks[f"long-track survey: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
+        rel < BANDED_STEP_RTOL)
+    log(f"survey phase: {time.perf_counter() - t_phase!r} s")
+    return checks
+
+
+def truncate_sequence(seq, t_end: float):
+    """A copy of ``seq`` with every stream cut after ``t_end`` and no
+    features (the front end makes them)."""
+    import numpy as np
+
+    def cut(t, *arrays):
+        k = int(np.searchsorted(t, t_end, side="right"))
+        return [a[:k] for a in (t, *arrays)]
+
+    out = dataclasses.replace(seq, features=[])
+    out.imu_t, out.imu_acc, out.imu_gyro = cut(seq.imu_t, seq.imu_acc, seq.imu_gyro)
+    out.pressure_t, out.pressure_mbar = cut(seq.pressure_t, seq.pressure_mbar)
+    out.dvl_pose_t, out.dvl_pose_quat, out.dvl_pose_pos = cut(
+        seq.dvl_pose_t, seq.dvl_pose_quat, seq.dvl_pose_pos)
+    out.dvl_twist_t, out.dvl_twist_vel = cut(seq.dvl_twist_t, seq.dvl_twist_vel)
+    out.image_t, out.images_left, out.images_right = cut(
+        seq.image_t, seq.images_left, seq.images_right)
+    out.gt_t, out.gt_quat, out.gt_pos, out.gt_vel = cut(seq.gt_t, seq.gt_quat, seq.gt_pos, seq.gt_vel)
+    return out
+
+
+def track_lengths(frames) -> dict:
+    """{track length in frames: number of track ids} over FeatureFrames."""
+    import numpy as np
+
+    ids = np.concatenate([f.ids for f in frames]) if frames else np.zeros(0, np.int64)
+    per_id = np.bincount(ids)
+    lengths = np.bincount(per_id[per_id > 0])
+    return {k: int(c) for k, c in enumerate(lengths) if k and c}
+
+
+def klt_card_check(clip, cfg) -> dict:
+    """klt_track on the card against the port's CPU run on the same inputs,
+    from the ORB keypoints of the clip's first left frame: to its second
+    left frame, and to a copy of the first shifted by a known sub-pixel
+    offset. Valid masks must be equal and points that converged on the CPU
+    (30 iterations = 60) within KLT_CARD_VS_CPU_PX; on the shifted copy at
+    least half the keypoints must track, with the median error against the
+    known offset within KLT_SHIFT_PX."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import shift as nd_shift
+
+    from uslam_tpu_torch.frontend.klt import klt_track
+    from uslam_tpu_torch.frontend.orb import extract_orb_batch
+
+    fcfg = cfg.frontend
+    a = np.asarray(clip.images_left[0], np.float32)
+    kp = extract_orb_batch(torch.from_numpy(a)[None].cuda(), fcfg)
+    pts, mask = kp.xy[0], kp.mask[0]
+    sx, sy = KLT_SHIFT
+    targets = {
+        "next frame": np.asarray(clip.images_left[1], np.float32),
+        f"shifted ({sx}, {sy}) px": nd_shift(a, (sy, sx), order=1, mode="nearest"),
+    }
+    kw = dict(levels=fcfg.pyramid_levels, radius=fcfg.patch_size // 2)
+    checks = {}
+    for name, b in targets.items():
+        args = [torch.from_numpy(a), torch.from_numpy(b), pts.cpu(), mask.cpu()]
+        card, card_ok = klt_track(*(x.cuda() for x in args), **kw)
+        cpu, cpu_ok = klt_track(*args, **kw)
+        longer = klt_track(*args, iters=60, **kw)[0]
+        card, card_ok = card.cpu(), card_ok.cpu()
+        sel = cpu_ok & torch.all(longer == cpu, dim=1)
+        err = float((card - cpu)[sel].abs().max()) if bool(sel.any()) else 0.0
+        n_kp, n_ok = int(mask.sum()), int(cpu_ok.sum())
+        line = (f"  klt_track card vs CPU, {name}: {n_ok} of {n_kp} keypoints tracked "
+                f"(card {int(card_ok.sum())}), {int(sel.sum())} converged, max |card - CPU| "
+                f"{err!r} px")
+        checks[f"klt: card tracks = CPU's, {name}"] = bool(torch.equal(card_ok, cpu_ok)) and (
+            err <= KLT_CARD_VS_CPU_PX)
+        if name.startswith("shifted"):
+            off = (card - pts.cpu() - torch.tensor([sx, sy]))[card_ok].norm(dim=1)
+            med = float(off.median()) if n_ok else math.inf
+            line += f"; median error vs the known offset {med!r} px"
+            checks[f"klt: half the keypoints track a known shift within {KLT_SHIFT_PX} px"] = (
+                2 * n_ok >= n_kp > 0 and med <= KLT_SHIFT_PX)
+        log(line)
+    return checks
+
+
+def klt_phase(seq, cfg) -> dict:
+    """Phase 10: run_sequence with the KLT temporal tracker on the first
+    ONLINE_SECONDS of the dive, beside the ORB front end on the same frames."""
+    import numpy as np
+
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.frontend.tracker import StereoFrontend
+    from uslam_tpu_torch.pipeline import run_sequence
+
+    t_phase = time.perf_counter()
+    cfg_klt = dataclasses.replace(
+        cfg, frontend=dataclasses.replace(cfg.frontend, temporal_tracker="klt"))
+    runs = {}
+    for name, c in (("orb", cfg), ("klt", cfg_klt)):
+        clip = truncate_sequence(seq, ONLINE_SECONDS)
+        kernels.reset_launch_counts()
+        r = run_sequence(clip, c, device="cuda")
+        launches = dict(kernels.launch_counts)
+        m = r.metrics
+        n = m["num_poses"]
+        per_lm = r.graph.stereo.lm_obs_mask.sum(1).long().cpu().numpy()
+        ate_odom = ate_rmse(r.odom_compare, clip.gt_pos[:n])
+        runs[name] = dict(r=r, clip=clip, launches=launches, ate_odom=ate_odom,
+                          multi=int((per_lm >= 2).sum()), observed=int((per_lm >= 1).sum()))
+        log(f"{name} front end on the first {ONLINE_SECONDS} s ({len(clip.image_t)} frames): "
+            f"{m['frontend_frames'] / m['frontend_seconds']!r} frames/s; launches {launches}; "
+            f"solve {m['solve_seconds']!r} s, {m['lm_iterations']} LM iterations, error "
+            f"{m['initial_error']!r} -> {m['final_error']!r}; landmarks observed in >= 2 keyframes "
+            f"{runs[name]['multi']} of {runs[name]['observed']} observed; ATE vs ground truth "
+            f"{m['ate_rmse_vs_gt']!r} m, DVL odometry {ate_odom!r} m")
+        # The same frames again with the RANSAC gate opened (front end only):
+        # whether the temporal association or the shared gate ends the tracks.
+        open_gate = dataclasses.replace(c.frontend, ransac_threshold_px=1e9)
+        fe = StereoFrontend(c.camera, open_gate, device="cuda")
+        frames = fe.process_chunk(clip.images_left, clip.images_right, clip.image_t)
+        log(f"  {name} track lengths in frames {{length: tracks}}: {track_lengths(clip.features)}; "
+            f"RANSAC gate opened: {track_lengths(frames)}")
+    k = runs["klt"]
+    m, n_frames = k["r"].metrics, len(k["clip"].image_t)
+    card_checks = klt_card_check(k["clip"], cfg)
+    levels = cfg.frontend.pyramid_levels
+    errors = (m["initial_error"], m["final_error"], m["ate_rmse_vs_gt"], k["ate_odom"])
+    log(f"KLT phase: {time.perf_counter() - t_phase!r} s")
+    return {
+        "launches": k["launches"],
+        "checks": {
+            f"klt: fast_harris {levels} and hamming 1 launches per frame": k["launches"] == {
+                "fast_harris": levels * n_frames, "hamming": n_frames},
+            "klt: every frame went through the front end": m["frontend_frames"] == n_frames,
+            "klt: errors and ATEs finite, final error < initial":
+            all(math.isfinite(e) for e in errors) and m["final_error"] < m["initial_error"],
+            f"klt: ATE <= {ONLINE_ATE_VS_ODOM} x the DVL odometry's":
+            m["ate_rmse_vs_gt"] <= ONLINE_ATE_VS_ODOM * k["ate_odom"],
+            "klt: trajectory finite": bool(np.isfinite(k["r"].trajectory).all()),
+            **card_checks,
+        },
+    }
+
+
 def main() -> int:
     if not (ROOT / "uslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -924,6 +1344,14 @@ def main() -> int:
     checks.update(online["checks"])
     online_launches = online["launches"]
 
+    # ---- 9. the survey sweep on the banded solver and its certificate ------
+    checks.update(survey_phase())
+
+    # ---- 10. the KLT temporal tracker on the dive's first seconds ----------
+    klt = klt_phase(seq, cfg)
+    checks.update(klt["checks"])
+    klt_launches = klt["launches"]
+
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
     )
@@ -947,6 +1375,7 @@ def main() -> int:
                 "library_ms": None,  # no PyTorch call computes FAST-9 + Harris
                 # The online path (phase 8, pass (a)): one stereo pair per keyframe.
                 "online_launches": online_launches["fast_harris"],
+                "klt_launches": klt_launches["fast_harris"],
                 "keyframe_ms": sum(kf_ms), "keyframe_bound_ms": sum(kf_bound),
             },
             {
@@ -959,6 +1388,7 @@ def main() -> int:
                 "bound_ms": hm_bound, "bound_by": hm_bound_by, "share": hm_bound / hm_ms,
                 "library_ms": None,  # no PyTorch call computes packed-word Hamming
                 "online_launches": online_launches["hamming"],
+                "klt_launches": klt_launches["hamming"],
                 "keyframe_ms": hm_kf_ms, "keyframe_bound_ms": hm_kf_bound,
             },
         ]

@@ -372,8 +372,10 @@ def test_lm_matches_jax_f64(problem):
 
 
 def test_unported_solver_paths_raise(problem):
-    """The default solver config and the f64 polish solve; the banded
-    reduced solver and debug_nans are not ported and raise."""
+    """The default solver config and the f64 polish solve; debug_nans is not
+    ported and raises; the banded reduced solver without a band width raises
+    ValueError, as the JAX package's LM does (tests/test_torch_banded.py
+    drives it)."""
     tg, tv = problem["ours"][:2]
     short = dict(max_iterations=3)
     for solver in (tconfig.SolverConfig(**short), tconfig.SolverConfig(f64_polish=True, **short)):
@@ -386,12 +388,12 @@ def test_unported_solver_paths_raise(problem):
             assert m["polish_final_error"] <= m["polish_initial_error"]
             assert result.values.pose_trans.dtype == torch.float64
     ct = tcam.StereoCamera.from_config(tconfig.CameraConfig(), device="cpu")
-    for solver in (
-        tconfig.SolverConfig(reduced_solver="banded"),
-        tconfig.SolverConfig(linear_solver="dense", reduced_solver="banded"),
-        tconfig.SolverConfig(debug_nans=True),
+    for solver, error in (
+        (tconfig.SolverConfig(reduced_solver="banded"), ValueError),
+        (tconfig.SolverConfig(linear_solver="dense", reduced_solver="banded"), ValueError),
+        (tconfig.SolverConfig(debug_nans=True), NotImplementedError),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error):
             run_solver(to_port(tg, "cpu"), to_port(tv, "cpu"), ct, *SIGMAS, solver)
 
 

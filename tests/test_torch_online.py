@@ -227,6 +227,7 @@ def test_stream_paths_agree(streams):
     n_kf = {name: o.keyframes for name, o in runs.items()}
     assert set(n_kf.values()) == {len(seq.image_t)}, n_kf
     assert any(e.get("fused") for e in runs["fused"].timings)
+    assert all(e["tracker"] == "orb" for e in runs["fused"].timings)
     assert runs["split"].smoother._dev_state is not None
     trajs = {name: runs[name].trajectory() for name in ("host", "split", "fused")}
     assert all(t.shape == (len(seq.image_t), 3) and np.isfinite(t).all() for t in trajs.values())

@@ -3,11 +3,13 @@ for field and default for default (``tests/test_torch_backend.py`` holds the
 two equal); :func:`uslam_tpu_torch.interop.config_to_port` carries a JAX
 package config across.
 
-The port reads every field of the offline batch path. Fields of paths it
-has not ported yet (the banded reduced solver, ``debug_nans``, the KLT
-tracker) are kept so configs stay interchangeable; choosing such a path
-raises ``NotImplementedError``. ``FrontendConfig.use_pallas`` is not read:
-the front-end kernels dispatch on the device of their tensors.
+The port reads every field of the offline batch path, the banded reduced
+solver and the KLT tracker included. ``SolverConfig.debug_nans``, whose
+path is not ported yet, is kept so configs stay interchangeable; choosing
+it raises ``NotImplementedError``. Not read: ``FrontendConfig.use_pallas``
+(the front-end kernels dispatch on the device of their tensors) and
+``SolverConfig.banded_unroll`` (a ``lax.scan`` knob; the port's panel
+sweeps are Python loops).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class FrontendConfig:
     ransac_threshold_px: float = 3.0
     max_candidates: int = 1024
     use_pallas: bool | str = "auto"  # not read by the port
-    temporal_tracker: str = "orb"    # only 'orb' is ported
+    temporal_tracker: str = "orb"    # 'orb' | 'klt'
     klt_gate_px: float = 2.0
     # Stereo pairs per batched front-end step in run_sequence.
     offline_chunk: int = 8
@@ -104,8 +106,8 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class SolverConfig:
-    """Levenberg-Marquardt parameters; ``reduced_solver='banded'`` and
-    ``debug_nans`` are not ported and raise."""
+    """Levenberg-Marquardt parameters; ``debug_nans`` is not ported and
+    raises."""
 
     max_iterations: int = 100
     lambda_initial: float = 1e-5

@@ -1,12 +1,14 @@
 """Stereo front end with persistent track ids: the chunked offline path and
 the per-frame online path.
 
-Port of the ORB path of :mod:`uslam_tpu.frontend.tracker`: per chunk of C
-stereo pairs (C = 1 per frame), ORB on all 2C images, stereo matching,
-temporal matching against the previous left frame, gyro rotation
-compensation and 1-point translation RANSAC, all batched over the chunk;
-then host-side id interning and the nodelet's normalized [-1, 1] output
-contract.
+Port of :mod:`uslam_tpu.frontend.tracker`: per chunk of C stereo pairs
+(C = 1 per frame), ORB on all 2C images, stereo matching, temporal
+matching against the previous left frame, gyro rotation compensation and
+1-point translation RANSAC, all batched over the chunk; then host-side id
+interning and the nodelet's normalized [-1, 1] output contract. With
+``temporal_tracker="klt"`` the temporal association is pyramidal KLT
+(:mod:`uslam_tpu_torch.frontend.klt`) from the previous raw left image,
+frame by frame; ORB still detects and stereo-matches.
 
 Randomness is explicit: the RANSAC hypothesis indices are one (H,) index
 tensor, drawn once per front end from a seeded ``torch.Generator``
@@ -22,7 +24,13 @@ import torch
 from uslam_tpu_torch.config import CameraConfig, FrontendConfig
 from uslam_tpu_torch.io.sequence import FeatureFrame
 from uslam_tpu_torch.frontend.kernels import hamming
-from uslam_tpu_torch.frontend.match import match_from_dist, stereo_match_from_dist
+from uslam_tpu_torch.frontend.klt import klt_track
+from uslam_tpu_torch.frontend.match import (
+    Matches,
+    match_from_dist,
+    stereo_match,
+    stereo_match_from_dist,
+)
 from uslam_tpu_torch.frontend.orb import Keypoints, extract_orb_batch
 from uslam_tpu_torch.geometry.so3 import quat_rotate, so3_exp
 
@@ -144,11 +152,8 @@ class StereoFrontend:
         seed: int = 0,
         ransac_idx=None,
     ):
-        if cfg.temporal_tracker != "orb":
-            raise NotImplementedError(
-                f"temporal_tracker={cfg.temporal_tracker!r}: only 'orb' is "
-                "ported (KLT: see ROADMAP.md)"
-            )
+        if cfg.temporal_tracker not in ("orb", "klt"):
+            raise ValueError(f"temporal_tracker={cfg.temporal_tracker!r}: 'orb' or 'klt'")
         self.cam = cam
         self.cfg = cfg
         self.device = torch.device(device)
@@ -174,6 +179,7 @@ class StereoFrontend:
             mask=torch.zeros(K, dtype=torch.bool, device=dev),
         )
         self._prev_ids: np.ndarray | None = None
+        self._prev_img: torch.Tensor | None = None   # KLT: previous left image
         self._next_id = 0
 
     def _emit_frame(self, t, ids, xy_l_all, xy_r_raw, sm_idx_np) -> FeatureFrame:
@@ -206,6 +212,58 @@ class StereoFrontend:
         self._prev_ids = ids
         return ids
 
+    def _associate_klt(self, left: torch.Tensor, kp_l: Keypoints):
+        """KLT-predict the previous keypoints into this frame and associate
+        each current detection with the nearest prediction within
+        ``klt_gate_px`` (the reference nodelet's strategy,
+        stereo.launch:41-43). Returns (index into the previous keypoints
+        or -1, mask)."""
+        cfg, prev = self.cfg, self._prev
+        tracked, ok = klt_track(
+            self._prev_img, left, prev.xy, prev.mask,
+            levels=cfg.pyramid_levels, radius=cfg.patch_size // 2,
+        )
+        diff = kp_l.xy[:, None, :] - tracked[None, :, :]
+        d = torch.sqrt(diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+        d = torch.where(ok[None, :] & prev.mask[None, :], d, torch.inf)
+        best, j = torch.min(d, dim=1)
+        mask = (best <= cfg.klt_gate_px) & kp_l.mask
+        return torch.where(mask, j, -1), mask
+
+    def _klt_pair_step(self, pair: torch.Tensor, rotvec: torch.Tensor):
+        """One stereo pair (2, H, W) float32 with KLT temporal association:
+        ORB on both images (one ``fast_harris`` launch per level), the
+        stereo match (one ``hamming`` launch), KLT from the previous left
+        image, the gyro warp and RANSAC. Returns (kp_left, kp_right, stereo
+        idx, stereo mask, temporal idx or -1)."""
+        cfg = self.cfg
+        kp = extract_orb_batch(pair, cfg)
+        sm = stereo_match(
+            kp.desc[:1], kp.xy[:1], kp.mask[:1], kp.desc[1:], kp.xy[1:], kp.mask[1:],
+            max_distance=cfg.match_max_distance,
+            ratio=cfg.match_ratio,
+            max_v_diff=cfg.stereo_max_v_diff,
+            min_disparity=cfg.stereo_min_disparity,
+        )
+        sm = Matches(*(a[0] for a in sm))
+        kp_l = Keypoints(*(a[0] for a in kp))
+        kp_r = Keypoints(*(a[1] for a in kp))
+        if self._prev_img is None:
+            tm_idx = torch.full_like(sm.idx, -1)
+        else:
+            tm_idx, tm_mask = self._associate_klt(pair[0], kp_l)
+            prev_xy = torch.where(
+                torch.any(rotvec != 0.0), rotation_warp(self._prev.xy, rotvec, self.kvec),
+                self._prev.xy,
+            )
+            flow = kp_l.xy - prev_xy[torch.clamp(tm_idx, min=0)]
+            inlier = ransac_translation(
+                flow[None], tm_mask[None], self.ransac_idx, cfg.ransac_threshold_px
+            )[0]
+            tm_idx = torch.where(inlier, tm_idx, -1)
+        self._prev_img = pair[0]
+        return kp_l, kp_r, sm.idx, sm.mask, tm_idx
+
     def process(self, left, right, t: float, gyro_rotvec=None) -> FeatureFrame:
         """One rectified stereo pair (numpy (H, W), any real dtype) ->
         FeatureFrame. The pair goes up as one (2, H, W) copy in its own
@@ -213,12 +271,14 @@ class StereoFrontend:
         the device. ``gyro_rotvec`` (3,): integrated gyro rotation since the
         previous frame; None or zeros skip the warp."""
         pair = torch.from_numpy(np.stack([np.asarray(left), np.asarray(right)]))
+        pair = pair.to(self.device).to(torch.float32)
         rv = np.zeros(3, np.float32) if gyro_rotvec is None else gyro_rotvec
-        kp_l, kp_r, sm_idx, sm_mask, tm_idx = orb_pair_step(
-            pair.to(self.device).to(torch.float32), self._prev, self.cfg,
-            torch.as_tensor(np.asarray(rv, np.float32), device=self.device),
-            self.kvec, self.ransac_idx,
-        )
+        rv = torch.as_tensor(np.asarray(rv, np.float32), device=self.device)
+        if self.cfg.temporal_tracker == "klt":
+            out = self._klt_pair_step(pair, rv)
+        else:
+            out = orb_pair_step(pair, self._prev, self.cfg, rv, self.kvec, self.ransac_idx)
+        kp_l, kp_r, sm_idx, sm_mask, tm_idx = out
         tm_idx, stereo_ok, sm_idx, xy_l_all, xy_r_raw = (
             a.cpu().numpy() for a in (tm_idx, sm_mask, sm_idx, kp_l.xy, kp_r.xy)
         )
@@ -231,10 +291,20 @@ class StereoFrontend:
     ) -> list[FeatureFrame]:
         """C rectified stereo pairs (numpy (C, H, W)) -> C FeatureFrames.
         ``pad_to`` pads a ragged tail chunk with zero images (no corners),
-        whose outputs are discarded."""
+        whose outputs are discarded. With the KLT tracker the pairs go
+        through :meth:`process` one by one (KLT needs the previous raw
+        image) and ``pad_to`` is not needed. An ORB chunk leaves no
+        previous image for a later KLT frame, which then starts new
+        tracks."""
         n_real = len(ts)
         if n_real == 0:
             return []
+        if self.cfg.temporal_tracker == "klt":
+            return [
+                self.process(lefts[i], rights[i], float(ts[i]),
+                             None if gyro_rotvecs is None else gyro_rotvecs[i])
+                for i in range(n_real)
+            ]
         pairs = np.stack([np.asarray(lefts), np.asarray(rights)], axis=1)
         rot = (
             np.zeros((n_real, 3), np.float32)
@@ -262,4 +332,5 @@ class StereoFrontend:
             )
         # Carry the last REAL frame's left keypoints.
         self._prev = Keypoints(*(a[n_real - 1] for a in kp_l))
+        self._prev_img = None
         return frames

@@ -16,6 +16,12 @@ keyframe k's estimate and returns keyframe k-1's (implies ``fused``; call
 :meth:`OnlineSlam.flush` to drain the last one). ``threaded_upload`` sends
 the fused path's stereo pair from a pinned buffer on a side stream, which
 the compute stream waits on.
+
+``FrontendConfig(temporal_tracker="klt")`` makes the per-frame front end
+associate by KLT; the fused steady-state step matches by ORB descriptors
+whatever the tracker, as the JAX package's fused step does. Such an
+``OnlineSlam`` logs a warning when it is built, and each keyframe's entry
+in ``timings`` names the tracker that associated it.
 """
 
 from __future__ import annotations
@@ -78,6 +84,9 @@ class OnlineSlam:
             self.fused = True
         if self.fused:
             self.device_resident = True
+            if self.config.frontend.temporal_tracker == "klt":
+                log.warning("OnlineSlam(fused=True): steady keyframes match by ORB "
+                            "descriptors, not by the configured KLT tracker")
         self._steady_solver = self.config.solver
         if self.max_update_iters is not None:
             self._steady_solver = dataclasses.replace(
@@ -182,6 +191,7 @@ class OnlineSlam:
             "triangulate_ms": (t2 - t1) * 1e3,
             "smoother_ms": (t3 - t2) * 1e3,
             "total_ms": (t3 - t0) * 1e3,
+            "tracker": self.config.frontend.temporal_tracker,
         }
         if len(sm.timings) > n_timing:
             entry.update(sm.timings[-1])
@@ -265,6 +275,7 @@ class OnlineSlam:
             "frontend_ms": 0.0,      # inside the device step
             "triangulate_ms": 0.0,
             "fused": True,
+            "tracker": "orb",        # the fused step matches by descriptors
         }
         if self.pipelined:
             # Start the copy of keyframe k's outputs, THEN harvest k-1, so

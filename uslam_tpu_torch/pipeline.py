@@ -19,6 +19,7 @@ Method map to the reference (batch.py): process_depth :122, process_odom
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
@@ -41,6 +42,7 @@ from uslam_tpu_torch.graph.values import Values
 from uslam_tpu_torch.interop import to_port
 from uslam_tpu_torch.io.sequence import SensorSequence
 from uslam_tpu_torch.io.timesync import approximate_time_join, slice_stream
+from uslam_tpu_torch.solvers.banded import measure_band_width, measure_corr_window
 from uslam_tpu_torch.solvers.lm import LMStats, optimize_lm
 from uslam_tpu_torch.solvers.marginals import joint_marginal_covariance, marginal_covariances
 from uslam_tpu_torch.solvers.polish import polish_f64
@@ -75,6 +77,35 @@ def run_solver(graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
     return optimize_lm(
         graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg, huber_delta
     )
+
+
+def banded_solver_config(solver_cfg: SolverConfig, graph: GraphArrays) -> SolverConfig:
+    """For ``reduced_solver="banded"``: with ``band_width <= 0``, the config
+    with ``band_width`` and ``banded_corr_window`` measured off the packed
+    graph (host numpy); otherwise the given band width, and a correction
+    window if set, checked against the measured ones, raising when
+    undersized (an undersized band drops Hessian mass without a sign).
+    Other configs come back unchanged."""
+    if solver_cfg.reduced_solver != "banded":
+        return solver_cfg
+    bw = measure_band_width(graph.stereo)
+    if solver_cfg.band_width <= 0:
+        return dataclasses.replace(
+            solver_cfg, band_width=bw, banded_corr_window=measure_corr_window(graph.stereo)
+        )
+    if solver_cfg.band_width < bw:
+        raise ValueError(
+            f"band_width {solver_cfg.band_width} < max landmark track span {bw} "
+            "(measure_band_width)"
+        )
+    if solver_cfg.banded_corr_window > 0:
+        cw = measure_corr_window(graph.stereo)
+        if solver_cfg.banded_corr_window < cw:
+            raise ValueError(
+                f"banded_corr_window {solver_cfg.banded_corr_window} < measured chunk "
+                f"frame span {cw} (measure_corr_window)"
+            )
+    return solver_cfg
 
 
 class AUVSlam:
@@ -159,12 +190,16 @@ class AUVSlam:
     def solve(self, with_landmark: bool = True) -> SlamResult:
         """LM solve (batch.py:336-338), then the float64 polish when
         ``SolverConfig.f64_polish``. ``solve_seconds`` covers both; the
-        metrics also carry ``polish_seconds`` and the ``polish_*`` info."""
+        metrics also carry ``polish_seconds`` and the ``polish_*`` info.
+        With ``reduced_solver="banded"`` the band parameters are measured
+        off the graph or checked (:func:`banded_solver_config`) and the
+        metrics carry the ``band_width`` and ``banded_corr_window`` used."""
         if self._graph_cache is None:
             self.batch_create(with_landmark)
         graph, initial = self._graph_cache
         cfg = self.config
-        args = (self.cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity, cfg.solver)
+        solver_cfg = banded_solver_config(cfg.solver, graph)
+        args = (self.cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity, solver_cfg)
         t0 = time.perf_counter()
         values, stats = run_solver(graph, initial, *args, cfg.noise.stereo_huber_delta)
         synchronize(self.device)
@@ -185,6 +220,9 @@ class AUVSlam:
         result.metrics = self.evaluate(result)
         if polish_info is not None:
             result.metrics.update(polish_info)
+        if solver_cfg.reduced_solver == "banded":
+            result.metrics.update(band_width=solver_cfg.band_width,
+                                  banded_corr_window=solver_cfg.banded_corr_window)
         log.info(
             "solve: %d poses, %d landmarks, %d LM iters, error %.3e -> %.3e, %.2fs",
             initial.num_poses, initial.num_landmarks, stats.iterations,

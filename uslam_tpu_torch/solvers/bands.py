@@ -7,11 +7,11 @@ The camera system is laid out pose-major,
 so the landmark Schur correction lands on one contiguous (6N, 6N) block.
 IMU, DVL and prior terms couple frame k only to frame k+1: they are
 assembled as per-frame diagonal blocks plus (k, k+1) coupling blocks, with
-shifted adds over per-interval einsums. The per-frame stereo sums are one
-(N, F) one-hot matmul over ``cam_idx``, as in the JAX package: one GEMM,
-whose order of additions is fixed, where an ``index_add_`` would add with
-float atomics on the GPU and change the result from run to run. Padded
-observations have zero Jacobians and add 0. The dense
+shifted adds over per-interval einsums. The per-frame stereo sums
+(:func:`frame_sum`; one-hot matmuls over ``cam_idx`` in the JAX package)
+add each frame's observations in a fixed order, where an ``index_add_``
+would add with float atomics on the GPU and change the result from run to
+run. Padded observations have zero Jacobians and are left out. The dense
 matrix the reduced Cholesky needs is made by block writes into a zero
 matrix, which is pure data movement and so exact.
 """
@@ -80,6 +80,27 @@ def _damp_diag(blk: torch.Tensor, lam: float, lam_floor: float, diag_damping: bo
     return blk + lam_floor * eye
 
 
+def frame_sum(values: torch.Tensor, frames: torch.Tensor, n: int) -> torch.Tensor:
+    """sum_b values[b] onto rows frames[b]: values (B, X), frames (B,) ->
+    (n, X); rows with a frame outside [0, n) are dropped, and callers send
+    their masked (zero) rows there. A stable sort on the frame, then one
+    sum over each frame's contiguous run (``segment_reduce``, no atomics):
+    linear in B, no host read, and the order of additions is fixed, so two
+    calls end bit-identical. A run is summed serially, so it must not hold
+    the padding: on an H100, one frame with all of a packed graph's padded
+    rows made this 22 ms at the 4000-pose survey, against 0.3 ms without
+    them and 10 ms for the one-hot GEMM."""
+    fs, perm = torch.sort(frames, stable=True)
+    offsets = torch.searchsorted(fs, torch.arange(n + 1, device=fs.device, dtype=fs.dtype))
+    return torch.segment_reduce(values[perm], "sum", offsets=offsets, axis=0, unsafe=True)
+
+
+def observed_frames(cam_idx: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """cam_idx as int64 with masked observations sent to frame n, which
+    :func:`frame_sum` drops."""
+    return torch.where(mask > 0, cam_idx.long(), n)
+
+
 def assemble_cam_bands(
     lin: Linearization, stereo: StereoObservations, n: int, damping,
     diag_damping: bool = False,
@@ -133,8 +154,7 @@ def assemble_cam_bands(
         ],
         dim=1,
     )                                                    # (F, 42)
-    frames = torch.arange(n, device=rhs.device)
-    per_frame = (stereo.cam_idx.long()[None, :] == frames[:, None]).to(rhs.dtype) @ rhs
+    per_frame = frame_sum(rhs, observed_frames(stereo.cam_idx, stereo.mask, n), n)
     pp_d = pp_d + per_frame[:, :36].reshape(n, 6, 6)
     gp = gp + per_frame[:, 36:]
 

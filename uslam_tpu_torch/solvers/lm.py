@@ -14,8 +14,10 @@ the solve's floating type, so every comparison rounds as the JAX loop's did.
 
 The default linear solver is the landmark Schur complement with velocity
 elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
-reduced solve; ``linear_solver="dense"`` factors the whole tangent space.
-The banded reduced solver is not ported (ROADMAP.md).
+reduced solve; ``reduced_solver="banded"`` runs the banded large-N solve
+(:mod:`uslam_tpu_torch.solvers.banded`) whatever ``linear_solver`` says, as
+the JAX package does; ``linear_solver="dense"`` factors the whole tangent
+space.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from uslam_tpu_torch.config import SolverConfig
 from uslam_tpu_torch.geometry.camera import StereoCamera
 from uslam_tpu_torch.graph.builder import GraphArrays
 from uslam_tpu_torch.graph.values import Values, values_retract
+from uslam_tpu_torch.solvers.banded import solve_schur_banded
 from uslam_tpu_torch.solvers.dense import assemble_dense_with_landmarks, solve_dense_gn
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.schur import solve_schur
@@ -54,9 +57,10 @@ def optimize_lm(
     huber_delta: float | None = None,
 ) -> tuple[Values, LMStats]:
     """Run LM to convergence."""
-    if cfg.reduced_solver == "banded":
-        raise NotImplementedError(
-            "reduced_solver='banded' is not ported (see ROADMAP.md)"
+    if cfg.reduced_solver == "banded" and cfg.band_width <= 0:
+        raise ValueError(
+            "reduced_solver='banded' needs band_width >= the max track "
+            "span (solvers.banded.measure_band_width)"
         )
     n, m = initial.num_poses, initial.num_landmarks
     # Host-side scalars in the solve's float type, so comparisons round as
@@ -81,6 +85,18 @@ def optimize_lm(
     jitter = cfg.cholesky_jitter if floored_diag else max(cfg.cholesky_jitter, 1e-7)
 
     def solve(lin, lam):
+        if cfg.reduced_solver == "banded":
+            return solve_schur_banded(
+                lin, graph.stereo, n, m, float(lam),
+                band_w=cfg.band_width,
+                panel=cfg.banded_panel or None,
+                refine_iters=(
+                    cfg.banded_refine_iters if cfg.banded_refine_iters >= 0 else cfg.refine_iters
+                ),
+                jitter=jitter,
+                diag_damping=diag_damping,
+                corr_window=cfg.banded_corr_window,
+            )
         if cfg.linear_solver == "schur":
             return solve_schur(
                 lin, graph.stereo, n, m, float(lam),

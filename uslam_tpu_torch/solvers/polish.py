@@ -9,7 +9,9 @@ in a few iterations. The JAX package ran this tail on the host CPU because
 its TPU has no float64; the H100 has, so the port runs it on ``device``
 (the card by default, where the float32 solve ran), with the same policy:
 lambda 1e-7, nu, at most 12 iterations, the Schur solve with 2 refinement
-passes and a 1e-12 jitter.
+passes and a 1e-12 jitter, or with ``reduced_solver="banded"`` and a band
+width set, the banded solve (O(N P^2) where the Schur solve factors the
+dense reduced system).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from uslam_tpu_torch.config import SolverConfig
 from uslam_tpu_torch.device import cast_tree, resolve_device
 from uslam_tpu_torch.graph.values import Values, values_retract
+from uslam_tpu_torch.solvers.banded import solve_schur_banded
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.schur import solve_schur
 
@@ -40,8 +43,6 @@ def polish_f64(
     """Continue LM in float64 on ``device`` from a (float32) solution.
     Returns (float64 Values, info dict with ``polish_iterations``,
     ``polish_initial_error``, ``polish_final_error``)."""
-    if cfg.reduced_solver == "banded":
-        raise NotImplementedError("reduced_solver='banded' is not ported (see ROADMAP.md)")
     dev = resolve_device(device)
     graph64 = cast_tree(graph, torch.float64, dev)
     cam64 = cast_tree(cam, torch.float64, dev)
@@ -55,7 +56,17 @@ def polish_f64(
     def err_fn(v):
         return float(graph_error(graph64, v, **kw))
 
+    banded = cfg.reduced_solver == "banded" and cfg.band_width > 0
+
     def solve_fn(lin, lam):
+        if banded:
+            return solve_schur_banded(
+                lin, graph64.stereo, n, m, lam,
+                band_w=cfg.band_width, panel=cfg.banded_panel or None,
+                refine_iters=2, jitter=1e-12,
+                diag_damping=cfg.damping_mode == "diag",
+                corr_window=cfg.banded_corr_window,
+            )
         return solve_schur(
             lin, graph64.stereo, n, m, lam,
             refine_iters=2, jitter=1e-12,
