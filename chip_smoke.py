@@ -7,7 +7,8 @@ NVIDIA GPU, and check what comes out.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``.
+2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``,
+   g++ the C++ bag scanner from ``uslam_tpu_torch/native``.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (FAST+Harris on 16 images at each of
    the three pyramid levels of 1920x1080, bit-identical on the interior,
@@ -73,6 +74,30 @@ Phases, each of which raises (exit code != 0) on failure:
    ATE within ``ONLINE_ATE_VS_ODOM`` of the DVL odometry's. ``klt_track``
    on the card is held to the CPU on the clip's first two frames and on a
    copy shifted by a known sub-pixel offset, which it must recover.
+11. ingest and the command line: (a) the first ``ONLINE_SECONDS`` of the
+   dive (uint8 frames, stamps on the nanosecond grid) written as a
+   reference-style ROS bag (``sensor_msgs/Imu``, pressure JSON in
+   ``std_msgs/String``, ``PoseWithCovarianceStamped``, ``TwistStamped``
+   and two ``mono8`` ``sensor_msgs/Image`` topics, bz2; the sensor topics
+   alone again as lz4), read back (frames, arrays and stamps equal to the
+   source), and run on the card beside the same clip in memory (features,
+   launches and errors equal after ``INGEST_LM_ITERS`` LM iterations each,
+   not converged); the C++ bag scanner against the Python reader on both
+   bags, with their times; (b) ``python -m uslam_tpu_torch info`` on the
+   bag and ``synth`` + ``info`` on an npz, as child processes; (c) a 20 Hz
+   1080p KLT clip (``CLI_CLIP``, 40 keyframes) saved as npz and solved by
+   ``run --config klt.json --polish --save-values --dot --plot`` through
+   the command line's entry point in this process, its launch counts set
+   to 0 just before: that run's launches (3 fast_harris and 1 hamming per
+   frame), its solve on the card, error falling, ATE within
+   ``ONLINE_ATE_VS_ODOM`` of the DVL odometry's, files written, values
+   loaded onto the card, its KLT track lengths (ROADMAP C1, C4) and its
+   track ids equal frame for frame to the port's front end on the CPU
+   over the same npz; ORB's track lengths beside; (d)
+   ``SolverConfig.debug_nans`` bit-identical on a clean 2 s solve
+   (``INGEST_LM_ITERS`` LM iterations) and raising ``FloatingPointError``
+   at ``linearize`` on a NaN IMU sample, and ``smooth_imu`` on the card
+   equal to the CPU.
 
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -82,11 +107,14 @@ nothing of the JAX package ``uslam_tpu``.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -146,6 +174,24 @@ FRAME_SUM_RTOL = 1e-12
 KLT_CARD_VS_CPU_PX = 1e-3
 KLT_SHIFT = (-2.3, 3.6)
 KLT_SHIFT_PX = 0.05
+# Phase 11: stamps survive a bag's secs/nsecs round trip to this many
+# seconds; the run on the decoded bag ends within this relative error of
+# the run on the same frames in memory. Both solves, and the debug_nans
+# ones, stop after INGEST_LM_ITERS LM iterations, far from convergence
+# (the 21-keyframe solve takes ~52 iterations and ~60 s on the card's
+# host): they hold two runs of one input to each other, not to an
+# optimum, and phase 5 shows a solve of one graph repeats bit for bit.
+# Then the 20 Hz KLT clip for the command line, and the share of its KLT
+# landmarks expected in >= 2 keyframes (ROADMAP C1; an ALERT below it,
+# see C4; the check is that the card's tracks equal the CPU's);
+# smooth_imu on the card against the CPU, relative to the largest value.
+BAG_STAMP_S = 1e-9
+INGEST_ERROR_RTOL = 1e-6
+INGEST_LM_ITERS = 3
+CLI_CLIP = dict(duration=2.0, keyframe_rate=20.0, odom_drift_rate=0.05)
+KLT_MULTI_SHARE = 0.25
+SMOOTH_IMU_RTOL = 1e-5
+IMAGE_TOPICS = ("/zedm/zed_node/left/image_rect_color", "/zedm/zed_node/right/image_rect_color")
 
 
 def log(msg: str) -> None:
@@ -1127,6 +1173,545 @@ def klt_phase(seq, cfg) -> dict:
     }
 
 
+# ---- phase 11: ROS bags, npz files and the command line ---------------------
+# ROS1 message definitions and serializers of the reference's topics (the
+# public ROS1 wire format: little-endian, length-prefixed strings and arrays).
+
+IMU_DEF = """\
+Header header
+geometry_msgs/Quaternion orientation
+float64[9] orientation_covariance
+geometry_msgs/Vector3 angular_velocity
+float64[9] angular_velocity_covariance
+geometry_msgs/Vector3 linear_acceleration
+float64[9] linear_acceleration_covariance
+================================================================================
+MSG: geometry_msgs/Quaternion
+float64 x
+float64 y
+float64 z
+float64 w
+================================================================================
+MSG: geometry_msgs/Vector3
+float64 x
+float64 y
+float64 z
+"""
+
+POSE_COV_DEF = """\
+Header header
+geometry_msgs/PoseWithCovariance pose
+================================================================================
+MSG: geometry_msgs/PoseWithCovariance
+geometry_msgs/Pose pose
+float64[36] covariance
+================================================================================
+MSG: geometry_msgs/Pose
+geometry_msgs/Point position
+geometry_msgs/Quaternion orientation
+================================================================================
+MSG: geometry_msgs/Point
+float64 x
+float64 y
+float64 z
+================================================================================
+MSG: geometry_msgs/Quaternion
+float64 x
+float64 y
+float64 z
+float64 w
+"""
+
+TWIST_DEF = """\
+Header header
+geometry_msgs/Twist twist
+================================================================================
+MSG: geometry_msgs/Twist
+geometry_msgs/Vector3 linear
+geometry_msgs/Vector3 angular
+================================================================================
+MSG: geometry_msgs/Vector3
+float64 x
+float64 y
+float64 z
+"""
+
+STRING_DEF = "string data\n"
+
+IMAGE_DEF = """\
+Header header
+uint32 height
+uint32 width
+string encoding
+uint8 is_bigendian
+uint32 step
+uint8[] data
+"""
+
+
+def s_string(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<I", len(b)) + b
+
+
+def s_header(t: float) -> bytes:
+    secs = int(t)
+    return struct.pack("<III", 7, secs, int(round((t - secs) * 1e9))) + s_string("")
+
+
+def ser_imu(t, acc, gyro) -> bytes:
+    cov = struct.pack("<9d", *([0.0] * 9))
+    return (s_header(t) + struct.pack("<4d", 0.0, 0.0, 0.0, 1.0) + cov
+            + struct.pack("<3d", *gyro) + cov + struct.pack("<3d", *acc) + cov)
+
+
+def ser_pose_cov(t, quat_wxyz, pos) -> bytes:
+    w, x, y, z = quat_wxyz
+    return (s_header(t) + struct.pack("<3d", *pos) + struct.pack("<4d", x, y, z, w)
+            + struct.pack("<36d", *([0.0] * 36)))
+
+
+def ser_twist(t, vel) -> bytes:
+    return s_header(t) + struct.pack("<3d", *vel) + struct.pack("<3d", 0.0, 0.0, 0.0)
+
+
+def ser_pressure(mbar) -> bytes:
+    return s_string(json.dumps({"press_abs": mbar, "temperature": 21.0}))
+
+
+def ser_image_mono8(t, img) -> bytes:
+    h, w = img.shape
+    return (s_header(t) + struct.pack("<II", h, w) + s_string("mono8")
+            + struct.pack("<BII", 0, w, h * w) + img.tobytes())
+
+
+def sensor_messages(seq, tp) -> list:
+    """The four sensor topics of ``seq`` as (topic, type, definition, t,
+    bytes), with the reference's message types."""
+    msgs = [(tp.imu, "sensor_msgs/Imu", IMU_DEF, float(t), ser_imu(float(t), a, g))
+            for t, a, g in zip(seq.imu_t, seq.imu_acc, seq.imu_gyro)]
+    msgs += [(tp.pressure, "std_msgs/String", STRING_DEF, float(t), ser_pressure(float(p)))
+             for t, p in zip(seq.pressure_t, seq.pressure_mbar)]
+    msgs += [(tp.dvl_pose, "geometry_msgs/PoseWithCovarianceStamped", POSE_COV_DEF, float(t),
+              ser_pose_cov(float(t), q, p))
+             for t, q, p in zip(seq.dvl_pose_t, seq.dvl_pose_quat, seq.dvl_pose_pos)]
+    msgs += [(tp.dvl_twist, "geometry_msgs/TwistStamped", TWIST_DEF, float(t), ser_twist(float(t), v))
+             for t, v in zip(seq.dvl_twist_t, seq.dvl_twist_vel)]
+    return msgs
+
+
+SENSOR_FIELDS = (
+    ("imu_t", "imu_acc", "imu_gyro"), ("pressure_t", "pressure_mbar"),
+    ("dvl_pose_t", "dvl_pose_quat", "dvl_pose_pos"), ("dvl_twist_t", "dvl_twist_vel"),
+)
+SEQ_ARRAYS = [f for group in SENSOR_FIELDS for f in group] + [
+    "mavros_vel_t", "mavros_vel", "image_t", "images_left", "images_right"]
+
+
+def sequences_equal(a, b) -> bool:
+    """Every stream of two sequences array-equal, features included."""
+    import numpy as np
+
+    for name in SEQ_ARRAYS:
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            return False
+    return len(a.features) == len(b.features) and all(
+        fa.t == fb.t and all(np.array_equal(getattr(fa, f), getattr(fb, f))
+                             for f in ("ids", "u0", "v0", "u1", "v1"))
+        for fa, fb in zip(a.features, b.features))
+
+
+def cli(*args: str, timeout: float = 900):
+    """``python -m uslam_tpu_torch *args`` as a child process from the
+    checkout; logs its exit code, wall time and, on failure, its stderr."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "uslam_tpu_torch", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=timeout, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+    )
+    log(f"  $ python -m uslam_tpu_torch {' '.join(Path(a).name if '/' in a else a for a in args)}"
+        f": exit {proc.returncode} in {time.perf_counter() - t0!r} s")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+    return proc
+
+
+def bag_round_trip(seq, cfg, tmp: Path) -> dict:
+    """Phase 11 (a): the first ONLINE_SECONDS of the dive, uint8 frames, as a
+    reference-style bag (bz2; its sensor topics alone again as lz4), read
+    back, and run on the card beside the same frames in memory; the C++
+    scanner against the Python reader on both bags."""
+    import numpy as np
+
+    from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.io import rosbag
+    from uslam_tpu_torch.pipeline import run_sequence
+
+    clip = truncate_sequence(seq, ONLINE_SECONDS)
+    clip.images_left = np.clip(clip.images_left, 0, 255).astype(np.uint8)
+    clip.images_right = np.clip(clip.images_right, 0, 255).astype(np.uint8)
+    # Stamps as a bag records them, whole nanoseconds, so that the clip in
+    # memory and the bag read back hold the same ones: otherwise an IMU
+    # sample stamped at a keyframe's time may move by an ulp across it. The
+    # reader keys an image pair by its stamp rounded to 0.1 ms.
+    for name in ("imu_t", "pressure_t", "dvl_pose_t", "dvl_twist_t", "image_t"):
+        q = [int(t) + int(round((t - int(t)) * 1e9)) * 1e-9 for t in getattr(clip, name).tolist()]
+        setattr(clip, name, np.array([round(t, 4) for t in q] if name == "image_t" else q))
+    tp = rosbag.BagTopics(image_left=IMAGE_TOPICS[0], image_right=IMAGE_TOPICS[1])
+    sensors = sorted(sensor_messages(clip, tp), key=lambda m: m[3])
+    images = [(topic, "sensor_msgs/Image", IMAGE_DEF, float(t), ser_image_mono8(float(t), img))
+              for t, lo, ro in zip(clip.image_t, clip.images_left, clip.images_right)
+              for topic, img in ((tp.image_left, lo), (tp.image_right, ro))]
+    bag, lz4_bag = tmp / "dive.bag", tmp / "sensors_lz4.bag"
+    t0 = time.perf_counter()
+    rosbag.write_bag(str(bag), sorted(sensors + images, key=lambda m: m[3]), compression="bz2")
+    t_bz2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rosbag.write_bag(str(lz4_bag), sensors, compression="lz4")
+    t_lz4 = time.perf_counter() - t0
+    written = {}
+    for topic, *_ in sensors + images:
+        written[topic] = written.get(topic, 0) + 1
+    log(f"  wrote {bag.name}: {len(sensors) + len(images)} messages ({len(images)} mono8 images "
+        f"{clip.images_left.shape[1:]}), {os.path.getsize(bag)} bytes, bz2, in {t_bz2!r} s; "
+        f"{lz4_bag.name}: {len(sensors)} messages, {os.path.getsize(lz4_bag)} bytes, lz4, in "
+        f"{t_lz4!r} s (host)")
+
+    t0 = time.perf_counter()
+    dec = rosbag.bag_to_sequence(str(bag), topics=tp, decode_images=True)
+    log(f"  decoded with images (Python reader): {time.perf_counter() - t0!r} s (host)")
+    frames_equal = all(
+        d is not None and d.dtype == np.float32 and np.array_equal(d, src)
+        for d, src in ((dec.images_left, clip.images_left), (dec.images_right, clip.images_right)))
+    stamp_err, data_equal = 0.0, True
+    for t_name, *data in SENSOR_FIELDS + (("image_t",),):
+        a, b = getattr(dec, t_name), getattr(clip, t_name)
+        if a.shape != b.shape:
+            stamp_err = math.inf
+            continue
+        stamp_err = max(stamp_err, float(np.abs(a - b).max()))
+        data_equal &= all(np.array_equal(getattr(dec, f), getattr(clip, f)) for f in data)
+    log(f"  decoded frames equal the uint8 source: {frames_equal}; sensor arrays equal: "
+        f"{data_equal}; stamps within {stamp_err!r} s")
+
+    acfg = dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, max_iterations=INGEST_LM_ITERS))
+    runs = {}
+    for name, s in (("in memory", clip), ("decoded bag", dec)):
+        kernels.reset_launch_counts()
+        r = run_sequence(s, acfg, device="cuda")
+        runs[name] = (r, dict(kernels.launch_counts), s.features)
+        m = r.metrics
+        log(f"  run_sequence on the {name} ({INGEST_LM_ITERS} LM iterations at most): launches "
+            f"{runs[name][1]}, {m['lm_iterations']} LM iterations, error {m['initial_error']!r} -> "
+            f"{m['final_error']!r}")
+    (ref, ref_launches, ref_feats), (got, launches, got_feats) = runs.values()
+    features_equal = len(ref_feats) == len(got_feats) == len(clip.image_t) and all(
+        abs(a.t - b.t) <= BAG_STAMP_S and all(
+            np.array_equal(getattr(a, f), getattr(b, f)) for f in ("ids", "u0", "v0", "u1", "v1"))
+        for a, b in zip(ref_feats, got_feats))
+    err_rel = max(abs(got.metrics[k] - ref.metrics[k]) / ref.metrics[k]
+                  for k in ("initial_error", "final_error"))
+
+    readers_equal = {}
+    for path in (bag, lz4_bag):
+        size, seqs = os.path.getsize(path), {}
+        for label, native in (("C++ scanner", True), ("Python reader", False)):
+            t0 = time.perf_counter()
+            seqs[label] = rosbag.bag_to_sequence(str(path), use_native=native)
+            dt = time.perf_counter() - t0
+            # No rate from a read of milliseconds: tools/bag_reader_scale.py
+            # times both readers on a whole dive's sensor bag.
+            rate = f", {size / dt / 1e6!r} MB/s" if dt >= 1.0 else ""
+            log(f"  {path.name} ({size} bytes), {label}: {dt!r} s{rate} (host of the card's "
+                f"machine; bag bytes over wall time, decompression included)")
+        readers_equal[path.name] = sequences_equal(*seqs.values()) and len(
+            seqs["C++ scanner"].imu_t) == len(clip.imu_t)
+    return {
+        "bag": bag, "written": written, "launches": launches,
+        "checks": {
+            "ingest (a): bag frames equal the uint8 source": frames_equal,
+            "ingest (a): bag sensor arrays equal the source": data_equal,
+            f"ingest (a): bag stamps within {BAG_STAMP_S} s": stamp_err <= BAG_STAMP_S,
+            "ingest (a): features from the decoded bag equal those in memory": features_equal,
+            "ingest (a): launches on the decoded bag equal those in memory": (
+                launches == ref_launches and launches["fast_harris"] > 0),
+            f"ingest (a): errors within {INGEST_ERROR_RTOL} of the run in memory":
+            err_rel <= INGEST_ERROR_RTOL,
+            **{f"ingest (a): C++ scanner = Python reader on {k}": v
+               for k, v in readers_equal.items()},
+        },
+    }
+
+
+def info_counts(text: str) -> dict:
+    """{name: count} from the lines ``info`` prints for a bag or an npz."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if line.startswith("  ") and len(parts) >= 2:
+            if parts[-1] == "msgs" or parts[-1] == "frames":
+                out[parts[0]] = int(parts[-2])
+            elif parts[-1].isdigit():
+                out[parts[0]] = int(parts[-1])
+    return out
+
+
+def cli_checks(bag: Path, written: dict, tmp: Path) -> dict:
+    """Phase 11 (b): ``info`` on the bag, ``synth`` then ``info`` on its npz."""
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+
+    info_bag = cli("info", str(bag))
+    npz = str(tmp / "s.npz")
+    synth = cli("synth", "--duration", "4", "--out", npz)
+    info_npz = cli("info", npz)
+    spec = generate_synthetic_sequence(SyntheticSpec(duration=4.0, num_landmarks=256))
+    log(f"  info on the bag: {info_counts(info_bag.stdout)}; synth: {synth.stdout.strip()}; "
+        f"info on its npz: {info_counts(info_npz.stdout)}")
+    return {
+        "cli (b): info on the bag exits 0 with each topic's count":
+        info_bag.returncode == 0 and info_counts(info_bag.stdout) == written,
+        "cli (b): synth and info exit 0 with the spec's keyframe and IMU counts":
+        synth.returncode == 0 and info_npz.returncode == 0 and {
+            k: v for k, v in info_counts(info_npz.stdout).items() if k in ("dvl_pose_t", "imu_t")}
+        == {"dvl_pose_t": len(spec.dvl_pose_t), "imu_t": len(spec.imu_t)},
+    }
+
+
+def cli_run_in_process(argv: list) -> tuple:
+    """``python -m uslam_tpu_torch *argv`` through its entry point
+    (``__main__.main``) in this process, with the launch counts set to 0
+    just before it: the counts read after it are the run's own. Returns
+    (exit code, stdout, stderr, launches, [(sequence, SlamResult)] of each
+    ``run_sequence`` call the command made)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uslam_tpu_torch import __main__ as entry
+    from uslam_tpu_torch import pipeline
+    from uslam_tpu_torch.frontend import kernels
+
+    calls, real = [], pipeline.run_sequence
+
+    def recorded(seq, *args, **kwargs):
+        result = real(seq, *args, **kwargs)
+        calls.append((seq, result))
+        return result
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    pipeline.run_sequence = recorded  # cmd_run imports it at call time
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = entry.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.run_sequence = real
+    launches = dict(kernels.launch_counts)
+    log(f"  $ python -m uslam_tpu_torch {' '.join(Path(a).name if '/' in a else a for a in argv)}"
+        f" (in this process): exit {rc} in {time.perf_counter() - t0!r} s")
+    return rc, out.getvalue(), err.getvalue(), launches, calls
+
+
+def frames_agree(card, cpu, cam) -> tuple:
+    """(frames whose track ids equal, max |card - CPU| over the feature
+    coordinates in px) of two front ends' FeatureFrames."""
+    import numpy as np
+
+    scale = {"u0": cam.resolution_x, "u1": cam.resolution_x,
+             "v0": cam.resolution_y, "v1": cam.resolution_y}
+    same, err = 0, 0.0
+    for a, b in zip(card, cpu):
+        if a.t != b.t or not np.array_equal(a.ids, b.ids):
+            continue
+        same += 1
+        for f, size in scale.items():
+            d = np.abs(getattr(a, f) - getattr(b, f))
+            err = max(err, float(d.max()) * 0.5 * size if len(d) else 0.0)
+    return same, err
+
+
+def cli_klt_run(cfg, tmp: Path) -> dict:
+    """Phase 11 (c): ``run`` on a 20 Hz 1080p clip with the KLT tracker and
+    the polish, through the command line's entry point in this process:
+    its launches, device, track lengths (ROADMAP C1) and features come from
+    that run. The port's front end on the CPU over the same npz must give
+    the card's track ids frame for frame. ORB's track lengths are printed
+    beside."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.config import FrontendConfig, UslamConfig
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.graph.values import Values
+    from uslam_tpu_torch.io.sequence import load_sequence, save_sequence
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import _run_frontend
+    from uslam_tpu_torch.utils.checkpoint import load_state
+
+    t0 = time.perf_counter()
+    clip = generate_synthetic_sequence(
+        SyntheticSpec(**CLI_CLIP), cfg.camera, render_images=True, omit_features=True)
+    clip.images_left = np.clip(clip.images_left, 0, 255).astype(np.uint8)
+    clip.images_right = np.clip(clip.images_right, 0, 255).astype(np.uint8)
+    npz, cfg_path = str(tmp / "clip.npz"), str(tmp / "klt.json")
+    save_sequence(npz, clip)
+    klt_cfg = UslamConfig(frontend=FrontendConfig(temporal_tracker="klt"))
+    klt_cfg.save_json(cfg_path)
+    n_kf = len(clip.image_t)
+    log(f"  clip {CLI_CLIP}: {n_kf} keyframes {clip.images_left.shape[1:]} uint8, rendered and "
+        f"saved ({os.path.getsize(npz)} bytes) in {time.perf_counter() - t0!r} s")
+    out = {k: str(tmp / n) for k, n in (("values", "v.npz"), ("dot", "g.dot"), ("plot", "p.png"))}
+    rc, stdout, stderr, launches, calls = cli_run_in_process(
+        ["run", npz, "--config", cfg_path, "--polish", "--save-values", out["values"],
+         "--dot", out["dot"], "--plot", out["plot"]])
+    if rc != 0:
+        log(stderr[-4000:])
+    m = json.loads(stdout) if rc == 0 else {}
+    log(f"  metrics: {m}")
+    (run_seq, result), = calls
+    solve_device = result.values.pose_trans.device
+    card_frames = run_seq.features
+
+    tracks = {"klt": track_lengths(card_frames)}
+    t0 = time.perf_counter()
+    cpu_frames = _run_frontend(load_sequence(npz), klt_cfg, torch.device("cpu"), None)
+    t_cpu = time.perf_counter() - t0
+    same, coord_err = frames_agree(card_frames, cpu_frames, cfg.camera)
+    t0 = time.perf_counter()
+    tracks["orb"] = track_lengths(_run_frontend(load_sequence(npz), UslamConfig(),
+                                                torch.device("cuda"), None))
+    t_orb = time.perf_counter() - t0
+    share = {}
+    for name, tl in tracks.items():
+        n_ids = sum(tl.values())
+        multi = sum(c for k, c in tl.items() if k >= 2)
+        share[name] = multi / max(n_ids, 1)
+        log(f"  {name} track lengths {{length: tracks}} {tl}; landmarks in >= 2 keyframes "
+            f"{multi} of {n_ids}")
+    log(f"  the run's KLT features against the port's KLT front end on the CPU ({t_cpu!r} s): "
+        f"ids equal in {same} of {len(card_frames)} frames ({len(cpu_frames)} on the CPU), "
+        f"max |card - CPU| {coord_err!r} px; ORB front end alone on the card {t_orb!r} s")
+    if share["klt"] < KLT_MULTI_SHARE:
+        # Not a check: the JAX package's front end gives these tracks id for
+        # id on this clip (ROADMAP C4), so the shortfall is the reference's.
+        log(f"  ALERT: {share['klt']!r} of the KLT landmarks seen in >= 2 keyframes, below "
+            f"{KLT_MULTI_SHARE} (ROADMAP C4: the 3 px 1-point translation RANSAC gate rejects "
+            f"parallax at this focal length)")
+    n = m.get("num_poses", 0)
+    _, _, odom, _ = pack_sequence(run_seq, klt_cfg)
+    ate_odom = ate_rmse(odom[:n], clip.gt_pos[:n]) if n else math.inf
+    values = (load_state(out["values"], Values(*[torch.empty(0)] * 5), device="cuda")
+              if os.path.exists(out["values"]) else None)
+    written = {k: os.path.exists(p) and os.path.getsize(p) > 0 for k, p in out.items()}
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    log(f"  launches {launches}; solved on {solve_device}; ATE vs ground truth "
+        f"{m.get('ate_rmse_vs_gt')!r} m, DVL odometry {ate_odom!r} m; saved values: "
+        f"{None if values is None else tuple(values.pose_trans.shape)}; files written {written} "
+        f"(matplotlib installed: {has_matplotlib}; CLI stderr: {stderr.strip()[-300:]!r})")
+    return {
+        "launches": launches, "imu": np.concatenate([clip.imu_acc, clip.imu_gyro], 1),
+        "checks": {
+            "cli (c): run exits 0 and prints JSON metrics": rc == 0 and bool(m),
+            "cli (c): run solved on the card": solve_device.type == "cuda",
+            f"cli (c): run launches fast_harris {cfg.frontend.pyramid_levels} and hamming 1 "
+            f"per frame": launches == {
+                "fast_harris": cfg.frontend.pyramid_levels * n_kf, "hamming": n_kf},
+            "cli (c): the LM's error falls": m.get("final_error", math.inf) < m.get(
+                "initial_error", -math.inf),
+            f"cli (c): ATE <= {ONLINE_ATE_VS_ODOM} x the DVL odometry's":
+            m.get("ate_rmse_vs_gt", math.inf) <= ONLINE_ATE_VS_ODOM * ate_odom,
+            "cli (c): --save-values and --dot written; --plot written, or matplotlib absent "
+            "and the CLI says so": all(written[k] for k in ("values", "dot")) and (
+                written["plot"] if has_matplotlib
+                else "matplotlib is not installed" in stderr),
+            "cli (c): the values load onto the card with the solve's pose count":
+            values is not None and values.pose_trans.is_cuda
+            and values.pose_quat.shape[0] == n <= n_kf,
+            f"cli (c): KLT track ids equal the CPU front end's frame for frame, coordinates "
+            f"within {KLT_CARD_VS_CPU_PX} px":
+            len(card_frames) == len(cpu_frames) == same == n_kf
+            and coord_err <= KLT_CARD_VS_CPU_PX,
+        },
+    }
+
+
+def debug_nans_and_filters(cfg, imu) -> dict:
+    """Phase 11 (d): ``debug_nans`` on a 2 s precomputed-feature solve, and
+    ``smooth_imu`` of the (c) clip's IMU stream on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.io.filters import smooth_imu
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import run_sequence
+
+    seq = generate_synthetic_sequence(SyntheticSpec(duration=2.0))
+    cfg = dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, max_iterations=INGEST_LM_ITERS))
+    on_cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, debug_nans=True))
+    t0 = time.perf_counter()
+    off = run_sequence(seq, cfg, device="cuda")
+    t_off = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on = run_sequence(seq, on_cfg, device="cuda")
+    t_on = time.perf_counter() - t0
+    same = on.stats == off.stats and all(torch.equal(a, b) for a, b in zip(on.values, off.values))
+    bad = dataclasses.replace(seq, imu_acc=seq.imu_acc.copy())
+    bad.imu_acc[len(bad.imu_acc) // 2, 1] = np.nan
+    try:
+        run_sequence(bad, on_cfg, device="cuda")
+        raised = None
+    except FloatingPointError as e:  # the outcome this check expects
+        raised = str(e)
+    log(f"  debug_nans: {off.stats.iterations} LM iterations, solve {t_off!r} s off, {t_on!r} s "
+        f"on; bit-identical: {same}; one NaN IMU sample: {raised!r}")
+
+    x = np.asarray(imu, np.float32)
+    smooth_imu(x, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = smooth_imu(x, device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = smooth_imu(x, device="cpu")
+    err = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    log(f"  smooth_imu {x.shape} on the card: {ms!r} ms host wall (synchronized; "
+        f"{2 * (len(x) + 24)} sequential steps), max |card - CPU| / max |CPU| {err!r}")
+    return {
+        "debug_nans (d): a clean solve with the flag on is bit-identical": same,
+        "debug_nans (d): a NaN IMU sample raises FloatingPointError naming linearize":
+        raised is not None and "linearize" in raised,
+        f"smooth_imu (d): card within {SMOOTH_IMU_RTOL} of the CPU": err <= SMOOTH_IMU_RTOL,
+    }
+
+
+def ingest_phase(seq, cfg) -> dict:
+    """Phase 11: a reference-style bag through the port's readers to the
+    card, the command line, ROADMAP C1 at 20 Hz, debug_nans and smooth_imu."""
+    t_phase = time.perf_counter()
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        log("ingest (a): a reference-style bag of the dive's first seconds")
+        a = bag_round_trip(seq, cfg, tmp)
+        checks.update(a["checks"])
+        log("ingest (b): the command line")
+        checks.update(cli_checks(a["bag"], a["written"], tmp))
+        log("ingest (c): run from the command line on a 20 Hz 1080p clip, KLT")
+        c = cli_klt_run(cfg, tmp)
+        checks.update(c["checks"])
+    log("ingest (d): debug_nans and smooth_imu")
+    checks.update(debug_nans_and_filters(cfg, c["imu"]))
+    log(f"ingest phase: {time.perf_counter() - t_phase!r} s")
+    return {"checks": checks, "bag_launches": a["launches"], "cli_klt_launches": c["launches"]}
+
+
 def main() -> int:
     if not (ROOT / "uslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1167,6 +1752,11 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     log(f"  fast_harris SASS: {sass_loop_summary(kernels.load()._name)}")
+    from uslam_tpu_torch import native
+
+    t0 = time.perf_counter()
+    log(f"build: C++ bag scanner {Path(native.load()._name).name} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = UslamConfig()
@@ -1352,6 +1942,10 @@ def main() -> int:
     checks.update(klt["checks"])
     klt_launches = klt["launches"]
 
+    # ---- 11. ROS bags, npz files and the command line ------------------------
+    ingest = ingest_phase(seq, cfg)
+    checks.update(ingest["checks"])
+
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
     )
@@ -1376,6 +1970,10 @@ def main() -> int:
                 # The online path (phase 8, pass (a)): one stereo pair per keyframe.
                 "online_launches": online_launches["fast_harris"],
                 "klt_launches": klt_launches["fast_harris"],
+                # Phase 11: the run on the decoded bag, and the command
+                # line's run on the 20 Hz KLT clip.
+                "bag_launches": ingest["bag_launches"]["fast_harris"],
+                "cli_klt_launches": ingest["cli_klt_launches"]["fast_harris"],
                 "keyframe_ms": sum(kf_ms), "keyframe_bound_ms": sum(kf_bound),
             },
             {
@@ -1389,6 +1987,8 @@ def main() -> int:
                 "library_ms": None,  # no PyTorch call computes packed-word Hamming
                 "online_launches": online_launches["hamming"],
                 "klt_launches": klt_launches["hamming"],
+                "bag_launches": ingest["bag_launches"]["hamming"],
+                "cli_klt_launches": ingest["cli_klt_launches"]["hamming"],
                 "keyframe_ms": hm_kf_ms, "keyframe_bound_ms": hm_kf_bound,
             },
         ]

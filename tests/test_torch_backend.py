@@ -372,13 +372,14 @@ def test_lm_matches_jax_f64(problem):
 
 
 def test_unported_solver_paths_raise(problem):
-    """The default solver config and the f64 polish solve; debug_nans is not
-    ported and raises; the banded reduced solver without a band width raises
-    ValueError, as the JAX package's LM does (tests/test_torch_banded.py
-    drives it)."""
+    """The default solver config, the f64 polish and the debug_nans solve
+    (tests/test_torch_cli.py holds it to the unchecked solve); the banded
+    reduced solver without a band width raises ValueError, as the JAX
+    package's LM does (tests/test_torch_banded.py drives it)."""
     tg, tv = problem["ours"][:2]
     short = dict(max_iterations=3)
-    for solver in (tconfig.SolverConfig(**short), tconfig.SolverConfig(f64_polish=True, **short)):
+    for solver in (tconfig.SolverConfig(**short), tconfig.SolverConfig(f64_polish=True, **short),
+                   tconfig.SolverConfig(debug_nans=True, **short)):
         slam = AUVSlam(tconfig.UslamConfig(solver=solver), device="cpu")
         slam._graph_cache = (to_port(tg, "cpu"), to_port(tv, "cpu"))
         result = slam.solve()
@@ -391,7 +392,6 @@ def test_unported_solver_paths_raise(problem):
     for solver, error in (
         (tconfig.SolverConfig(reduced_solver="banded"), ValueError),
         (tconfig.SolverConfig(linear_solver="dense", reduced_solver="banded"), ValueError),
-        (tconfig.SolverConfig(debug_nans=True), NotImplementedError),
     ):
         with pytest.raises(error):
             run_solver(to_port(tg, "cpu"), to_port(tv, "cpu"), ct, *SIGMAS, solver)

@@ -4,9 +4,12 @@ two equal); :func:`uslam_tpu_torch.interop.config_to_port` carries a JAX
 package config across.
 
 The port reads every field of the offline batch path, the banded reduced
-solver and the KLT tracker included. ``SolverConfig.debug_nans``, whose
-path is not ported yet, is kept so configs stay interchangeable; choosing
-it raises ``NotImplementedError``. Not read: ``FrontendConfig.use_pallas``
+solver and the KLT tracker included; ``SolverConfig.debug_nans`` runs
+finiteness checks after each stage of every LM iteration
+(:mod:`uslam_tpu_torch.solvers.lm`). A config goes to and from a plain dict,
+JSON or YAML with the JAX package's schema (``to_dict``, ``from_dict``,
+``from_json``, ``save_json``, ``from_yaml``, ``save_yaml``), so config files
+pass between the two packages. Not read: ``FrontendConfig.use_pallas``
 (the front-end kernels dispatch on the device of their tensors) and
 ``SolverConfig.banded_unroll`` (a ``lax.scan`` knob; the port's panel
 sweeps are Python loops).
@@ -14,7 +17,10 @@ sweeps are Python loops).
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -106,8 +112,8 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class SolverConfig:
-    """Levenberg-Marquardt parameters; ``debug_nans`` is not ported and
-    raises."""
+    """Levenberg-Marquardt parameters. ``debug_nans`` checks every LM stage
+    for non-finite values and raises ``FloatingPointError`` naming it."""
 
     max_iterations: int = 100
     lambda_initial: float = 1e-5
@@ -163,6 +169,57 @@ class UslamConfig:
     solver: SolverConfig = field(default_factory=SolverConfig)
     timesync: TimeSyncConfig = field(default_factory=TimeSyncConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "UslamConfig":
+        """Any subset of sections and keys; an unknown one raises KeyError."""
+        sub_types = {f.name: f.default_factory for f in dataclasses.fields(cls)}
+        built = {}
+        for k, v in d.items():
+            if k not in sub_types:
+                raise KeyError(f"Unknown config section {k!r}")
+            klass = type(sub_types[k]())
+            built[k] = _build_dataclass(klass, v) if isinstance(v, dict) else v
+        return cls(**built)
+
+    @classmethod
+    def from_json(cls, path: str) -> "UslamConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "UslamConfig":
+        """The schema of :meth:`from_json` in YAML (needs PyYAML, imported
+        here so the rest of the port does not)."""
+        import yaml
+
+        with open(path) as f:
+            d = yaml.safe_load(f)
+        return cls.from_dict(d or {})
+
+    def save_yaml(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+
+
+def _build_dataclass(klass, d: dict):
+    """``klass`` from a dict of its fields; lists become tuples."""
+    fields = {f.name for f in dataclasses.fields(klass)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in fields:
+            raise KeyError(f"Unknown config key {klass.__name__}.{k}")
+        kwargs[k] = tuple(v) if isinstance(v, list) else v
+    return klass(**kwargs)
 
 
 DEFAULT_CONFIG = UslamConfig()

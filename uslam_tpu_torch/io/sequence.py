@@ -53,3 +53,41 @@ class SensorSequence:
     gt_quat: np.ndarray | None = None
     gt_pos: np.ndarray | None = None
     gt_vel: np.ndarray | None = None
+
+
+def save_sequence(path: str, seq: SensorSequence) -> None:
+    """Write ``seq`` to one compressed npz, in the JAX package's layout key
+    for key (every array field, ``n_feature_frames``, and per feature frame
+    ``ff{i}_t``, ``ff{i}_ids`` and ``ff{i}_uv`` = [u0 v0 u1 v1]), so files
+    pass between the two packages both ways."""
+    arrays = {k: v for k, v in vars(seq).items() if isinstance(v, np.ndarray)}
+    arrays["n_feature_frames"] = np.asarray(len(seq.features))
+    for i, f in enumerate(seq.features):
+        arrays[f"ff{i}_t"] = np.asarray(f.t)
+        arrays[f"ff{i}_ids"] = f.ids
+        arrays[f"ff{i}_uv"] = np.stack([f.u0, f.v0, f.u1, f.v1], axis=-1)
+    np.savez_compressed(path, **arrays)
+
+
+def load_sequence(path: str) -> SensorSequence:
+    """Read a sequence written by :func:`save_sequence` (either package's)."""
+    z = np.load(path, allow_pickle=False)
+    features = []
+    for i in range(int(z["n_feature_frames"])):
+        uv = z[f"ff{i}_uv"]
+        features.append(FeatureFrame(
+            t=float(z[f"ff{i}_t"]), ids=z[f"ff{i}_ids"],
+            u0=uv[:, 0], v0=uv[:, 1], u1=uv[:, 2], v1=uv[:, 3],
+        ))
+    kwargs = {}
+    for name in (
+        "imu_t imu_acc imu_gyro pressure_t pressure_mbar dvl_pose_t "
+        "dvl_pose_quat dvl_pose_pos dvl_twist_t dvl_twist_vel"
+    ).split():
+        kwargs[name] = z[name]
+    for name in (
+        "mavros_vel_t mavros_vel "
+        "image_t images_left images_right gt_t gt_quat gt_pos gt_vel"
+    ).split():
+        kwargs[name] = z[name] if name in z.files else None
+    return SensorSequence(features=features, **kwargs)

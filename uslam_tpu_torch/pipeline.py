@@ -69,9 +69,8 @@ def run_solver(graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
                solver_cfg: SolverConfig, huber_delta=None):
     """LM entry. The normal equations must be solved in full float32 (the
     JAX package pins matmul precision to 'highest'): TF32 matmuls on the
-    card would keep ~3 decimal digits."""
-    if solver_cfg.debug_nans:
-        raise NotImplementedError("debug_nans is not ported (see ROADMAP.md)")
+    card would keep ~3 decimal digits. ``solver_cfg.debug_nans`` checks
+    every LM stage for non-finite values (:mod:`uslam_tpu_torch.solvers.lm`)."""
     if initial.pose_trans.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False")
     return optimize_lm(

@@ -422,6 +422,7 @@ def solve_schur_banded(
     return_aux: bool = False,
     corr_window: int = 0,
     corr_lm_chunk: int = 128,
+    check=None,
 ):
     """Banded counterpart of :func:`uslam_tpu_torch.solvers.schur.solve_schur`
     (same delta layout [frames(9N), bias(6), landmarks(3M)]; with
@@ -432,15 +433,16 @@ def solve_schur_banded(
     ``corr_window`` (0 = off) places the landmark correction per chunk of
     ``corr_lm_chunk`` landmarks in a window of that many frames (pass
     :func:`measure_corr_window`). Runs in float64 and returns the
-    linearization's type (module docstring). The multi-device form
-    (``axis_name``) is not ported."""
+    linearization's type (module docstring). ``check`` (the LM's
+    ``debug_nans``) is called on the banded reduction and on the reduced
+    solve. The multi-device form (``axis_name``) is not ported."""
     out_dtype = lin.stereo_r.dtype
     if out_dtype != torch.float64:
         dev = lin.stereo_r.device
         out = solve_schur_banded(
             cast_tree(lin, torch.float64, dev), cast_tree(stereo, torch.float64, dev),
             num_poses, num_landmarks, damping, band_w, panel, refine_iters, jitter,
-            diag_damping, return_aux, corr_window, corr_lm_chunk,
+            diag_damping, return_aux, corr_window, corr_lm_chunk, check,
         )
         if return_aux:
             return out[0].to(out_dtype), out[1].to(out_dtype)
@@ -462,6 +464,8 @@ def solve_schur_banded(
     )
     bands = assemble_cam_bands(lin, stereo, n, damping, diag_damping)
     band, bias_col, bb, g, gb = _frame_band(bands, B_corr, g_corr, n, band_w)
+    if check:
+        check("banded reduction", Hll_inv, g_l, band, bias_col, bb, g, gb)
 
     # ---- symmetric Jacobi scaling -------------------------------------------
     diag_entries = torch.diagonal(band[:, 0], dim1=1, dim2=2)        # (N, 9)
@@ -509,6 +513,8 @@ def solve_schur_banded(
         dy = torch.linalg.solve(S, gb_s - hb - bias_flat.T @ u)
         x = x + (u - X2 @ dy)
         y = y + dy
+    if check:
+        check("reduced solve", x, y)
 
     # ---- unscale + landmark back-substitution ---------------------------------
     frames = x.reshape(n, FRAME_DIM) * s_inv               # (N, 9) [pose | vel]

@@ -18,6 +18,13 @@ reduced solve; ``reduced_solver="banded"`` runs the banded large-N solve
 (:mod:`uslam_tpu_torch.solvers.banded`) whatever ``linear_solver`` says, as
 the JAX package does; ``linear_solver="dense"`` factors the whole tangent
 space.
+
+``SolverConfig.debug_nans`` (the JAX package turns on ``jax.debug_nans``
+around the solve) checks the results of every stage of every iteration for
+NaN and Inf: the linearization, the landmark Schur or banded reduction (or
+the dense assembly), the reduced solve, the step and the new error. The
+first non-finite value raises ``FloatingPointError`` naming its stage.
+With the flag off no check runs and no host read is added.
 """
 
 from __future__ import annotations
@@ -36,6 +43,14 @@ from uslam_tpu_torch.solvers.banded import solve_schur_banded
 from uslam_tpu_torch.solvers.dense import assemble_dense_with_landmarks, solve_dense_gn
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.schur import solve_schur
+
+
+def check_finite(stage: str, *tensors: torch.Tensor) -> None:
+    """``debug_nans``: raise FloatingPointError naming ``stage`` when one of
+    ``tensors`` holds a NaN or an Inf (one host read per tensor)."""
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"debug_nans: non-finite value after the {stage} stage")
 
 
 class LMStats(NamedTuple):
@@ -83,6 +98,7 @@ def optimize_lm(
     # (same rule as the JAX package).
     floored_diag = diag_damping and min(cfg.lambda_initial, cfg.lambda_lower_bound) >= 1e-7
     jitter = cfg.cholesky_jitter if floored_diag else max(cfg.cholesky_jitter, 1e-7)
+    check = check_finite if cfg.debug_nans else None
 
     def solve(lin, lam):
         if cfg.reduced_solver == "banded":
@@ -96,6 +112,7 @@ def optimize_lm(
                 jitter=jitter,
                 diag_damping=diag_damping,
                 corr_window=cfg.banded_corr_window,
+                check=check,
             )
         if cfg.linear_solver == "schur":
             return solve_schur(
@@ -107,30 +124,46 @@ def optimize_lm(
                 jitter=jitter,
                 diag_damping=diag_damping,
                 eliminate_velocities=cfg.eliminate_velocities,
+                check=check,
             )
         H, g = assemble_dense_with_landmarks(
             lin, graph.stereo.cam_idx, graph.stereo.lm_idx, n, m
         )
-        return solve_dense_gn(
+        if check:
+            check("dense assembly", H, g)
+        delta = solve_dense_gn(
             H, g, float(lam), refine_iters=cfg.refine_iters, jitter=jitter,
             diag_damping=diag_damping,
         )
+        if check:
+            check("reduced solve", delta)
+        return delta
+
+    def linearize(values: Values):
+        lin = lin_fn(values)
+        if check:
+            check("linearize", *lin)
+        return lin
 
     values = initial
-    lin = lin_fn(values)
+    lin = linearize(values)
     error = f(err_fn(values).item())
     init_error = error
     lam = f(cfg.lambda_initial)
     iterations, stall, converged = 0, 0, False
     while iterations < cfg.max_iterations and not converged:
         candidate = values_retract(values, solve(lin, lam))
+        if check:
+            check("step", *candidate)
         new_error = f(err_fn(candidate).item())
+        if check and not math.isfinite(new_error):
+            raise FloatingPointError("debug_nans: non-finite value after the new error stage")
         if not math.isfinite(new_error):
             new_error = f(np.inf)
         accept = bool(new_error < error)
         if accept:
             values = candidate
-            lin = lin_fn(values)
+            lin = linearize(values)
 
         decrease = np.abs(error - new_error)
         converged = accept and bool(

@@ -113,6 +113,7 @@ def solve_schur(
     jitter: float = 1e-7,
     diag_damping: bool = False,
     eliminate_velocities: bool = False,
+    check=None,
 ):
     """Solve the damped normal equations; returns delta over the global
     tangent layout [frames(9N), bias(6), landmarks(3M)].
@@ -122,15 +123,16 @@ def solve_schur(
     ``eliminate_velocities`` (ignored with ``cg``) eliminates the velocity
     chain before the reduced factorization (:func:`_solve_vel_eliminated`).
     The work runs in float64 (module docstring); delta and g.delta come back
-    in the linearization's type. The multi-device form of the JAX package
-    (``axis_name``) is not ported."""
+    in the linearization's type. ``check`` (the LM's ``debug_nans``) is
+    called on the landmark Schur reduction and on the reduced solve. The
+    multi-device form of the JAX package (``axis_name``) is not ported."""
     out_dtype = lin.stereo_r.dtype
     if out_dtype != torch.float64:
         delta = solve_schur(
             cast_tree(lin, torch.float64, lin.stereo_r.device),
             cast_tree(stereo, torch.float64, lin.stereo_r.device),
             num_poses, num_landmarks, damping, cg, cg_iters, cg_tol, return_aux,
-            refine_iters, jitter, diag_damping, eliminate_velocities,
+            refine_iters, jitter, diag_damping, eliminate_velocities, check,
         )
         if return_aux:
             return delta[0].to(out_dtype), delta[1].to(out_dtype)
@@ -143,6 +145,8 @@ def solve_schur(
     bands = assemble_cam_bands(lin, stereo, n, damping, diag_damping)
     H_corr = U @ V.T                                      # (6N, 6N)
     g_corr = U @ g_l.reshape(-1)                          # (6N,)
+    if check:
+        check("landmark Schur", Hll_inv, g_l, H_corr, g_corr)
 
     def back_substitute(dpose):
         """dl = Hll^-1 (g_l - V^T dpose)."""
@@ -151,7 +155,7 @@ def solve_schur(
 
     if eliminate_velocities and not cg:
         dpose, dvel, dbias, g_dot_cam = _solve_vel_eliminated(
-            bands, H_corr, g_corr, n, refine_iters, jitter
+            bands, H_corr, g_corr, n, refine_iters, jitter, check
         )
         delta_l = back_substitute(dpose)
         frames = torch.cat([dpose.reshape(n, POSE_DIM), dvel], dim=1)
@@ -166,6 +170,8 @@ def solve_schur(
         delta_perm = _cg_solve(H_red, g_c, cg_iters, cg_tol)
     else:
         delta_perm = scaled_cho_solve(H_red, g_c, refine_iters, jitter)
+    if check:
+        check("reduced solve", delta_perm)
 
     dpose = delta_perm[:pose_total]
     delta_l = back_substitute(dpose)
@@ -181,7 +187,7 @@ def solve_schur(
 
 def _solve_vel_eliminated(
     b: CamBands, H_corr: torch.Tensor, g_corr: torch.Tensor, n: int,
-    refine_iters: int, jitter: float,
+    refine_iters: int, jitter: float, check=None,
 ):
     """Eliminate the velocity chain, solve the (6N+6) pose+bias system,
     back-substitute the velocities.
@@ -234,6 +240,8 @@ def _solve_vel_eliminated(
         [torch.cat([Hpp, Hpb], dim=1), torch.cat([Hpb.T, Hbb], dim=1)], dim=0
     )
     sol = scaled_cho_solve(H_red, torch.cat([g_p, g_b]), refine_iters, jitter)
+    if check:
+        check("reduced solve", sol)
     dpose, dbias = sol[:pose_total], sol[pose_total:]
 
     # dv = Avv^-1 (gv - Avp dp - Avb db): the forward solves of all three
