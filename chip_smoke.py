@@ -99,6 +99,24 @@ Phases, each of which raises (exit code != 0) on failure:
    at ``linearize`` on a NaN IMU sample, and ``smooth_imu`` on the card
    equal to the CPU.
 
+12. multi-device (``uslam_tpu_torch.parallel`` over ``torch.distributed``):
+   (a) an NCCL group of one rank on cuda:0 in this process, where every
+   collective runs and is an identity: ``sharded_optimize_lm`` on phase 7's
+   1k problem must end bit-identical to phase 7's solve (iterations, final
+   error, values), ``sharded_lm_step`` with the banded solver on phase 9's
+   2000-pose survey bit-identical to the single-device step, and
+   ``process_stereo_pairs_sharded`` / ``extract_orb_frames_sharded`` on
+   phase 3's first chunk (uint8) equal to ``orb_chunk_step``'s stereo
+   output, with 3 fast_harris + 1 hamming and 3 fast_harris launches per
+   call; prints the collectives' bytes per LM iteration and their device
+   time in one sharded solve. (b) With two or more GPUs, one NCCL rank per
+   GPU (``parallel.launch.run_ranks``): the float64 1k LM held to one
+   rank's over ``PARALLEL_LM_ITERS`` iterations and the front end to (a)
+   exactly; on one GPU it prints that it did not run.
+   ``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 12 alone
+   (the 1k solve, the 2000-pose survey at its initial values and a 2 s
+   dive's first chunk made for it).
+
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
 nothing of the JAX package ``uslam_tpu``.
@@ -192,6 +210,11 @@ CLI_CLIP = dict(duration=2.0, keyframe_rate=20.0, odom_drift_rate=0.05)
 KLT_MULTI_SHARE = 0.25
 SMOOTH_IMU_RTOL = 1e-5
 IMAGE_TOPICS = ("/zedm/zed_node/left/image_rect_color", "/zedm/zed_node/right/image_rect_color")
+# Phase 12 (b): the ranks' float64 1k LM against one rank's, over this many
+# iterations, at tests/test_torch_parallel.py's tolerances.
+PARALLEL_LM_ITERS = 3
+PARALLEL_ERROR_RTOL = 1e-7
+PARALLEL_VALUES_ATOL = 1e-7
 
 
 def log(msg: str) -> None:
@@ -565,18 +588,17 @@ def offline_tail(result, seq, cfg) -> dict:
     }
 
 
-def solve_1k() -> dict:
-    """bench.py's 1k-pose batch solve (bench.py:279-306) with the default
-    Schur + velocity-elimination solver, then the f64 polish."""
+def load_1k() -> dict:
+    """bench.py's 1k-pose problem (bench.py:279-306) on precomputed features
+    and its solve by ``run_sequence`` with the default Schur +
+    velocity-elimination solver: the sequence, config, packed initial
+    values (numpy), the result and the run's wall s."""
     import torch
 
     from uslam_tpu_torch.config import SolverConfig, UslamConfig
-    from uslam_tpu_torch.eval.metrics import ate_rmse
-    from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.graph.packing import pack_sequence
     from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
     from uslam_tpu_torch.pipeline import run_sequence
-    from uslam_tpu_torch.solvers.polish import polish_f64
 
     t0 = time.perf_counter()
     seq = generate_synthetic_sequence(SyntheticSpec(
@@ -590,7 +612,22 @@ def solve_1k() -> dict:
     t0 = time.perf_counter()
     r = run_sequence(seq, cfg, device="cuda")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return {"seq": seq, "cfg": cfg, "initial": initial, "result": r, "gen_s": gen_s,
+            "wall": time.perf_counter() - t0}
+
+
+def solve_1k(one_k: dict) -> dict:
+    """bench.py's 1k-pose batch solve (bench.py:279-306, :func:`load_1k`)
+    with the default Schur + velocity-elimination solver, then the f64
+    polish."""
+    import torch
+
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.solvers.polish import polish_f64
+
+    seq, cfg, initial, r = one_k["seq"], one_k["cfg"], one_k["initial"], one_k["result"]
+    gen_s, wall = one_k["gen_s"], one_k["wall"]
     m = r.metrics
     n = m["num_poses"]
     gt = seq.gt_pos[:n]
@@ -898,32 +935,40 @@ def frame_sum_check(stereo, n: int, label: str) -> dict:
     }
 
 
+def survey_problem(n_poses: int) -> tuple:
+    """bench.py's scaling entry (bench.py:541-552) at ``n_poses``: the
+    sequence (precomputed features) and the banded solver's config."""
+    from uslam_tpu_torch.config import SolverConfig, UslamConfig
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+
+    seq = generate_synthetic_sequence(SyntheticSpec(
+        trajectory="survey", duration=n_poses / 5.0, keyframe_rate=5.0,
+        num_landmarks=max(512, n_poses), omega=0.15, max_feature_depth=10.0,
+        odom_drift_rate=0.02, feature_noise_px=0.3, seed=0,
+    ))
+    cfg = UslamConfig(solver=SolverConfig(
+        max_iterations=50, plateau_patience=3, relative_error_tol=1e-5, reduced_solver="banded"))
+    return seq, cfg
+
+
 def survey_solve(n_poses: int) -> dict:
     """bench.py's scaling entry (bench.py:541-628) at ``n_poses`` on the card,
     then its float64 certificate (bench.py:630-700) by the banded polish."""
     import numpy as np
     import torch
 
-    from uslam_tpu_torch.config import SolverConfig, UslamConfig
     from uslam_tpu_torch.eval.metrics import ate_rmse
     from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.graph.packing import pack_sequence
     from uslam_tpu_torch.interop import to_port
-    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
     from uslam_tpu_torch.pipeline import AUVSlam, banded_solver_config
     from uslam_tpu_torch.solvers.banded import auto_panel, solve_schur_banded
     from uslam_tpu_torch.solvers.linearize import linearize_graph
     from uslam_tpu_torch.solvers.polish import polish_f64
 
     t0 = time.perf_counter()
-    seq = generate_synthetic_sequence(SyntheticSpec(
-        trajectory="survey", duration=n_poses / 5.0, keyframe_rate=5.0,
-        num_landmarks=max(512, n_poses), omega=0.15, max_feature_depth=10.0,
-        odom_drift_rate=0.02, feature_noise_px=0.3, seed=0,
-    ))
+    seq, cfg = survey_problem(n_poses)
     gen_s = time.perf_counter() - t0
-    cfg = UslamConfig(solver=SolverConfig(
-        max_iterations=50, plateau_patience=3, relative_error_tol=1e-5, reduced_solver="banded"))
     t0 = time.perf_counter()
     graph_np, initial_np, odom, _ = pack_sequence(seq, cfg)
     pack_s = time.perf_counter() - t0
@@ -992,9 +1037,10 @@ def survey_solve(n_poses: int) -> dict:
     return out
 
 
-def survey_phase() -> dict:
+def survey_phase() -> tuple:
     """Phase 9: the survey sizes on the banded solver, the banded step held
-    to the Schur step at the first size, and the long-track a0 graph."""
+    to the Schur step at the first size, and the long-track a0 graph.
+    Returns (checks, the first size's graph, solution and config)."""
     import torch
 
     from uslam_tpu_torch.config import UslamConfig
@@ -1012,6 +1058,7 @@ def survey_phase() -> dict:
             rel = banded_vs_schur(res["graph"], res["values"], res["cfg"], f"survey {n_poses}")
             checks[f"survey {n_poses}: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
                 rel < BANDED_STEP_RTOL)
+            first = {k: res[k] for k in ("graph", "values", "cfg")}
         del res
         torch.cuda.empty_cache()
     # A short survey seen to 15 m: every track spans nearly the whole run
@@ -1029,7 +1076,7 @@ def survey_phase() -> dict:
     checks[f"long-track survey: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
         rel < BANDED_STEP_RTOL)
     log(f"survey phase: {time.perf_counter() - t_phase!r} s")
-    return checks
+    return checks, first
 
 
 def truncate_sequence(seq, t_end: float):
@@ -1712,6 +1759,357 @@ def ingest_phase(seq, cfg) -> dict:
     return {"checks": checks, "bag_launches": a["launches"], "cli_klt_launches": c["launches"]}
 
 
+# ---- phase 12: multi-device execution ----------------------------------------
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _device_ms_by(fn, keep) -> tuple:
+    """(device ms of the kernels whose name ``keep`` accepts, their count,
+    device ms of all kernels) of one synchronized call of ``fn`` under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kept_ms, kept_n, all_ms = 0.0, 0, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer"):
+            ms = e.time_range.elapsed_us() / 1e3
+            all_ms += ms
+            if keep(e.name):
+                kept_ms += ms
+                kept_n += 1
+    return kept_ms, kept_n, all_ms
+
+
+def _is_nccl(name: str) -> bool:
+    return "nccl" in name.lower()
+
+
+def chunk_reference(pairs_np, cfg):
+    """``orb_chunk_step`` on uint8 pairs (C, 2, H, W) as the offline
+    tracker's first chunk runs it (``StereoFrontend.process_chunk``, no
+    gyro): (kp_left, kp_right, stereo idx, stereo mask)."""
+    import torch
+
+    from uslam_tpu_torch.frontend.tracker import StereoFrontend, orb_chunk_step
+
+    fe = StereoFrontend(cfg.camera, cfg.frontend, device="cuda")
+    pairs = torch.from_numpy(pairs_np).cuda().to(torch.float32)
+    rot = torch.zeros((pairs_np.shape[0], 3), device="cuda")
+    return orb_chunk_step(pairs, fe._prev, cfg.frontend, rot, fe.kvec, fe.ransac_idx)[:4]
+
+
+def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
+    """Phase 12 (a): an NCCL group of one rank on cuda:0 in this process;
+    every collective runs and is an identity. ``pairs_np`` (C, 2, H, W)
+    uint8 go through the front end with ``cfg_fe`` (a UslamConfig)."""
+    import torch
+
+    from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.graph.values import values_retract
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.parallel import (
+        extract_orb_frames_sharded,
+        make_mesh,
+        process_stereo_pairs_sharded,
+        shard_landmarks,
+        sharded_lm_step,
+        sharded_optimize_lm,
+    )
+    from uslam_tpu_torch.parallel.mesh import close_mesh
+    from uslam_tpu_torch.pipeline import banded_solver_config
+    from uslam_tpu_torch.solvers.banded import solve_schur_banded
+    from uslam_tpu_torch.solvers.linearize import linearize_graph
+    from uslam_tpu_torch.solvers.lm import optimize_lm
+    from uslam_tpu_torch.solvers.schur import solve_schur
+
+    mesh = make_mesh(0, 1, "cuda:0")
+    try:
+        checks = {}
+        # -- the 1k solve, landmark-sharded, against phase 7's solve --------------
+        cfg, r = one_k["cfg"], one_k["result"]
+        sc = cfg.solver
+        cam = StereoCamera.from_config(cfg.camera, device="cuda")
+        sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+        graph, values = shard_landmarks(r.graph, to_port(one_k["initial"], "cuda"), mesh)
+        # Phase 7's solve was the process's first; time a warm one beside it.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, single = optimize_lm(r.graph, values, cam, *sig, sc, cfg.noise.stereo_huber_delta)
+        torch.cuda.synchronize()
+        single_s, single_it = time.perf_counter() - t0, single.iterations
+        t0 = time.perf_counter()
+        vals, stats = sharded_optimize_lm(graph, values, cam, *sig, mesh, sc,
+                                          cfg.noise.stereo_huber_delta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, m = values.num_poses, values.num_landmarks
+        corr_bytes = (6 * n) ** 2 * 8 + 6 * n * 8
+        gather_bytes = 3 * m * 8
+        lin = linearize_graph(graph, vals, cam, *sig, cfg.noise.stereo_huber_delta)
+
+        def solve():
+            return solve_schur(lin, graph.stereo, n, m, sc.lambda_initial,
+                               refine_iters=sc.refine_iters, jitter=sc.cholesky_jitter,
+                               diag_damping=True, eliminate_velocities=True, group=mesh.group)
+
+        solve()
+        nccl_ms, nccl_n, solve_ms = _device_ms_by(solve, _is_nccl)
+        log("multi-device (a): NCCL, one rank on cuda:0, in this process")
+        log(f"  1k sharded_optimize_lm: {stats.iterations} LM iterations in {wall!r} s "
+            f"({wall * 1e3 / max(stats.iterations, 1)!r} ms per iteration); optimize_lm again "
+            f"just before it {single_it} in {single_s!r} s ({single_s * 1e3 / max(single_it, 1)!r} "
+            f"ms per iteration; phase 7's, the process's first solve, "
+            f"{r.metrics['solve_seconds']!r} s); error {stats.final_error!r} (phase 7 "
+            f"{r.stats.final_error!r})")
+        log(f"  collectives per LM iteration: all-reduce of H_corr + g_corr {corr_bytes} B "
+            f"(6N = {6 * n}, float64), all-gather of the landmark delta {gather_bytes} B, "
+            f"broadcast of the error 4 B; one sharded solve_schur at the solution: NCCL "
+            f"kernels {nccl_n}, {nccl_ms!r} ms of its {solve_ms!r} ms device time")
+        checks["multi-device (a): 1k sharded LM = phase 7's LM (iterations, final error, values "
+               "bit-identical)"] = (
+            stats.iterations == r.stats.iterations and stats.final_error == r.stats.final_error
+            and _tree_equal(vals, r.values))
+        del lin, vals, graph, values
+
+        # -- one banded step on the 2000-pose survey -----------------------------
+        sgraph, svalues = survey["graph"], survey["values"]
+        scfg = banded_solver_config(survey["cfg"].solver, sgraph)
+        n, m = svalues.num_poses, svalues.num_landmarks
+        kw = dict(refine_iters=scfg.banded_refine_iters, jitter=scfg.cholesky_jitter,
+                  diag_damping=True)
+        lam, bw, cw = scfg.lambda_initial, scfg.band_width, scfg.banded_corr_window
+        scam = StereoCamera.from_config(survey["cfg"].camera, device="cuda")
+        ssig = (survey["cfg"].noise.dvl_sigma, survey["cfg"].noise.stereo_sigma,
+                survey["cfg"].imu.gravity)
+        lin = linearize_graph(sgraph, svalues, scam, *ssig)
+        ref = values_retract(svalues, solve_schur_banded(
+            lin, sgraph.stereo, n, m, lam, bw, corr_window=cw, **kw))
+        del lin
+        g_loc, v_loc = shard_landmarks(sgraph, svalues, mesh)
+        t0 = time.perf_counter()
+        out = sharded_lm_step(g_loc, v_loc, scam, *ssig, lam, mesh, reduced_solver="banded",
+                              band_w=bw, corr_window=cw, **kw)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        band_bytes = n * (bw + 1) * 36 * 8 + n * 6 * 8
+        log(f"  survey {n} banded sharded_lm_step: {step_s!r} s; all-reduce of the correction "
+            f"band {band_bytes} B (N={n}, band_w {bw}, float64), all-gather of the landmark "
+            f"delta {3 * m * 8} B")
+        checks[f"multi-device (a): survey {n} banded sharded step = single-device step "
+               "(bit-identical)"] = _tree_equal(out, ref)
+        del out, ref, g_loc, v_loc
+
+        # -- the front end, frame-parallel ------------------------------------------
+        ref = chunk_reference(pairs_np, cfg_fe)
+        torch.cuda.synchronize()
+        launches = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        kp_l, kp_r, idx, mask = process_stereo_pairs_sharded(
+            pairs_np[:, 0], pairs_np[:, 1], mesh, cfg_fe.frontend)
+        torch.cuda.synchronize()
+        pairs_ms = (time.perf_counter() - t0) * 1e3
+        launches["pairs"] = dict(kernels.launch_counts)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = extract_orb_frames_sharded(pairs_np[:, 0], mesh, cfg_fe.frontend)
+        torch.cuda.synchronize()
+        frames_ms = (time.perf_counter() - t0) * 1e3
+        launches["frames"] = dict(kernels.launch_counts)
+        c, levels = pairs_np.shape[0], cfg_fe.frontend.pyramid_levels
+        log(f"  front end on {c} uint8 pairs {pairs_np.shape[2:]}: process_stereo_pairs_sharded "
+            f"{pairs_ms!r} ms, launches {launches['pairs']}; extract_orb_frames_sharded "
+            f"{frames_ms!r} ms, launches {launches['frames']}; stereo matches "
+            f"{int(mask.sum())} of {int(kp_l.mask.sum())} left keypoints")
+        checks["multi-device (a): sharded stereo pairs = orb_chunk_step (keypoints, "
+               "descriptors, stereo idx and mask exact)"] = (
+            _tree_equal(kp_l, ref[0]) and _tree_equal(kp_r, ref[1])
+            and torch.equal(idx, ref[2]) and torch.equal(mask, ref[3]))
+        checks["multi-device (a): sharded frames = orb_chunk_step's left keypoints"] = (
+            _tree_equal(frames, ref[0]))
+        checks[f"multi-device (a): launches per call: pairs fast_harris {levels} hamming 1, "
+               f"frames fast_harris {levels} hamming 0"] = (
+            launches["pairs"] == {"fast_harris": levels, "hamming": 1}
+            and launches["frames"] == {"fast_harris": levels, "hamming": 0})
+        return {"checks": checks, "launches": launches,
+                "frontend": [a.cpu() for a in (*kp_l, *kp_r, idx, mask)]}
+    finally:
+        close_mesh(mesh)
+
+
+def _parallel_rank(mesh, graph, initial, cam_cfg, sig, huber, solver_cfg, pairs_np, fcfg):
+    """Phase 12 (b), one NCCL rank: the float64 1k LM (its wall s, the NCCL
+    device ms of one sharded solve at its end, and the ms of one H_corr
+    all-reduce alone) and the front end."""
+    import torch
+    import torch.distributed as dist
+
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.parallel import (
+        process_stereo_pairs_sharded,
+        shard_landmarks,
+        sharded_optimize_lm,
+    )
+    from uslam_tpu_torch.solvers.linearize import linearize_graph
+    from uslam_tpu_torch.solvers.schur import solve_schur
+
+    cam = StereoCamera.from_config(cam_cfg, device=mesh.device, dtype=torch.float64)
+    g, v = shard_landmarks(graph, initial, mesh)
+    walls = []
+    for _ in range(2):  # the process's first solve, then a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, stats = sharded_optimize_lm(g, v, cam, *sig, mesh, solver_cfg, huber)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    lin = linearize_graph(g, vals, cam, *sig, huber)
+
+    def solve():
+        return solve_schur(lin, g.stereo, v.num_poses, v.num_landmarks,
+                           solver_cfg.lambda_initial, refine_iters=solver_cfg.refine_iters,
+                           jitter=solver_cfg.cholesky_jitter, diag_damping=True,
+                           eliminate_velocities=True, group=mesh.group)
+
+    solve()
+    prof = _device_ms_by(solve, _is_nccl)
+    # The H_corr all-reduce alone: REPS back to back between CUDA events,
+    # after a barrier, so a rank's time holds little waiting for the others.
+    buf = torch.ones((6 * v.num_poses) ** 2, dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(buf, group=mesh.group)
+    dist.barrier(group=mesh.group)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PLAIN_REPS):
+        dist.all_reduce(buf, group=mesh.group)
+    end.record()
+    end.synchronize()
+    allreduce_ms = start.elapsed_time(end) / PLAIN_REPS
+    del buf
+    kp_l, kp_r, idx, mask = process_stereo_pairs_sharded(
+        pairs_np[:, 0], pairs_np[:, 1], mesh, fcfg.frontend)
+    return (type(vals)(*(a.cpu() for a in vals)), stats,
+            [a.cpu() for a in (*kp_l, *kp_r, idx, mask)], walls, prof, allreduce_ms)
+
+
+def parallel_many_gpus(one_k: dict, pairs_np, cfg_fe, frontend_a) -> dict:
+    """Phase 12 (b): one NCCL rank per GPU when the host has two or more,
+    held to (a) (the front end exactly, the float64 1k LM at
+    tests/test_torch_parallel.py's tolerances)."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.device import cast_tree
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.parallel.launch import run_ranks
+    from uslam_tpu_torch.solvers.lm import optimize_lm
+
+    cfg, r = one_k["cfg"], one_k["result"]
+    n_gpu = torch.cuda.device_count()
+    m = r.values.num_landmarks
+    world = max((w for w in (1, 2, 4, 8) if w <= n_gpu and pairs_np.shape[0] % w == 0
+                 and m % w == 0), default=1)
+    if world < 2:
+        log(f"multi-device (b): not run ({n_gpu} GPU; one NCCL rank per GPU needs two or more)")
+        return {}
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    huber = cfg.noise.stereo_huber_delta
+    solver = dataclasses.replace(cfg.solver, max_iterations=PARALLEL_LM_ITERS)
+    graph = cast_tree(r.graph, torch.float64, "cpu")
+    initial = cast_tree(to_port(one_k["initial"], "cpu"), torch.float64, "cpu")
+    cam = StereoCamera.from_config(cfg.camera, device="cuda", dtype=torch.float64)
+    ref_s = []
+    for _ in range(2):  # the first float64 solve of the process, then a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_vals, ref_stats = optimize_lm(cast_tree(graph, torch.float64, "cuda"),
+                                          cast_tree(initial, torch.float64, "cuda"), cam, *sig,
+                                          solver, huber)
+        torch.cuda.synchronize()
+        ref_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    outs = run_ranks(_parallel_rank, world, graph, initial, cfg.camera, sig, huber, solver,
+                     pairs_np, cfg_fe, device="cuda")
+    wall = time.perf_counter() - t0
+    lm_ok = all(
+        stats.iterations == ref_stats.iterations
+        and math.isclose(stats.final_error, ref_stats.final_error, rel_tol=PARALLEL_ERROR_RTOL)
+        and all(np.allclose(a.numpy(), b.cpu().numpy(), rtol=0, atol=PARALLEL_VALUES_ATOL)
+                for a, b in zip(vals, ref_vals))
+        for vals, stats, *_ in outs)
+    fe_ok = all(all(torch.equal(a, b) for a, b in zip(out[2], frontend_a)) for out in outs)
+    log(f"multi-device (b): {world} NCCL ranks, one per GPU, in {wall!r} s (spawn included): "
+        f"float64 1k LM {[o[1].iterations for o in outs]} iterations, final errors "
+        f"{[o[1].final_error for o in outs]} (one device {ref_stats.final_error!r} in "
+        f"{ref_s[0]!r} s cold, {ref_s[1]!r} s warm)")
+    for r_, out in enumerate(outs):
+        (nccl_ms, nccl_n, solve_ms), it = out[4], max(out[1].iterations, 1)
+        log(f"  rank {r_}: LM {out[3][0]!r} s cold, {out[3][1]!r} s warm "
+            f"({out[3][1] * 1e3 / it!r} ms per iteration); one sharded solve_schur at its end: "
+            f"NCCL kernels {nccl_n}, {nccl_ms!r} ms of {solve_ms!r} ms device time; "
+            f"the {(6 * r.values.num_poses) ** 2 * 8} B all-reduce alone {out[5]!r} ms")
+    return {
+        f"multi-device (b): {world} ranks, float64 1k LM = one rank ({PARALLEL_LM_ITERS} "
+        f"iterations, error rtol {PARALLEL_ERROR_RTOL}, values atol {PARALLEL_VALUES_ATOL})": lm_ok,
+        f"multi-device (b): {world} ranks, front end = (a) exactly": fe_ok,
+    }
+
+
+def parallel_phase(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
+    """Phase 12: (a) then (b); returns the checks and (a)'s launches."""
+    t_phase = time.perf_counter()
+    a = parallel_one_rank(one_k, survey, pairs_np, cfg_fe)
+    checks = dict(a["checks"])
+    checks.update(parallel_many_gpus(one_k, pairs_np, cfg_fe, a["frontend"]))
+    log(f"multi-device phase: {time.perf_counter() - t_phase!r} s")
+    return {"checks": checks, "launches": a["launches"]}
+
+
+
+def only_parallel(device_name: str) -> int:
+    """``--only-parallel``: phase 12 alone, on inputs made for it (the 1k
+    solve, the 2000-pose survey at its initial values, the first chunk of a
+    2 s dive)."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.config import UslamConfig
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+
+    cfg = UslamConfig()
+    seq = generate_synthetic_sequence(SyntheticSpec(duration=2.0, odom_drift_rate=0.05),
+                                      cfg.camera, render_images=True, omit_features=True)
+    c = cfg.frontend.offline_chunk
+    pairs = np.clip(np.stack([seq.images_left[:c], seq.images_right[:c]], 1), 0, 255)
+    s_seq, s_cfg = survey_problem(SURVEY_POSES[0])
+    g_np, v_np, _, _ = pack_sequence(s_seq, s_cfg)
+    survey = {"graph": to_port(g_np, "cuda"), "values": to_port(v_np, "cuda"), "cfg": s_cfg}
+    checks = parallel_phase(load_1k(), survey, pairs.astype(np.uint8), cfg)["checks"]
+    for name, ok in checks.items():
+        log(f"  check {'PASS' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("checks failed")
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
+    }), flush=True)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "uslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1728,10 +2126,11 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"device: {device_name}")
-    log(smi)
+    for line in smi:
+        log(line)
     torch.backends.cudnn.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
@@ -1757,6 +2156,11 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"build: C++ bag scanner {Path(native.load()._name).name} in "
         f"{time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--only-parallel"]:
+        return only_parallel(device_name)
+    if sys.argv[1:]:
+        print(f"unknown arguments {sys.argv[1:]}: none, or --only-parallel", file=sys.stderr)
+        return 2
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = UslamConfig()
@@ -1770,6 +2174,8 @@ def main() -> int:
     chunk = cfg.frontend.offline_chunk
     levels = cfg.frontend.pyramid_levels
     pairs = np.stack([seq.images_left[:chunk], seq.images_right[:chunk]], axis=1)
+    # Phase 12's front-end input: the chunk as uint8 frames, as a camera gives them.
+    first_chunk = np.clip(pairs, 0, 255).astype(np.uint8)
     rendered = torch.from_numpy(pairs).cuda().reshape((2 * chunk,) + pairs.shape[2:])
     rendered_levels = [im.contiguous() for im in build_pyramid(rendered, levels)]
     textured_levels = [
@@ -1927,7 +2333,8 @@ def main() -> int:
     checks.update(offline_tail(result, seq, cfg))
 
     # ---- 7. the solver at its published scale: the 1k-pose batch solve -----
-    checks.update(solve_1k())
+    one_k = load_1k()
+    checks.update(solve_1k(one_k))
 
     # ---- 8. the online stream: OnlineSlam on the card ----------------------
     online = online_phase(seq, cfg)
@@ -1935,7 +2342,8 @@ def main() -> int:
     online_launches = online["launches"]
 
     # ---- 9. the survey sweep on the banded solver and its certificate ------
-    checks.update(survey_phase())
+    survey_checks, survey_2k = survey_phase()
+    checks.update(survey_checks)
 
     # ---- 10. the KLT temporal tracker on the dive's first seconds ----------
     klt = klt_phase(seq, cfg)
@@ -1945,6 +2353,11 @@ def main() -> int:
     # ---- 11. ROS bags, npz files and the command line ------------------------
     ingest = ingest_phase(seq, cfg)
     checks.update(ingest["checks"])
+
+    # ---- 12. multi-device: NCCL, landmark-sharded LM, frame-parallel ORB --------
+    parallel = parallel_phase(one_k, survey_2k, first_chunk, cfg)
+    checks.update(parallel["checks"])
+    par = parallel["launches"]
 
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
@@ -1975,6 +2388,9 @@ def main() -> int:
                 "bag_launches": ingest["bag_launches"]["fast_harris"],
                 "cli_klt_launches": ingest["cli_klt_launches"]["fast_harris"],
                 "keyframe_ms": sum(kf_ms), "keyframe_bound_ms": sum(kf_bound),
+                # Phase 12 (a): one process_stereo_pairs_sharded and one
+                # extract_orb_frames_sharded call over phase 3's first chunk.
+                "parallel_launches": {k: v["fast_harris"] for k, v in par.items()},
             },
             {
                 "name": "hamming", "route": "cuda",
@@ -1990,6 +2406,7 @@ def main() -> int:
                 "bag_launches": ingest["bag_launches"]["hamming"],
                 "cli_klt_launches": ingest["cli_klt_launches"]["hamming"],
                 "keyframe_ms": hm_kf_ms, "keyframe_bound_ms": hm_kf_bound,
+                "parallel_launches": {k: v["hamming"] for k, v in par.items()},
             },
         ]
     }

@@ -111,7 +111,8 @@ def test_slice_never_imports_jax():
         "       'solvers.marginals', 'eval.graphviz', 'eval.plot', 'online', 'solvers.fixed_lag',\n"
         "       'solvers.banded', 'frontend.klt', '__main__', 'io.filters', 'io.images',\n"
         "       'io.lz4f', 'io.rosbag', 'native', 'utils', 'utils.checkpoint', 'utils.logging',\n"
-        "       'utils.profiling'}\n"
+        "       'utils.profiling', 'collectives', 'parallel', 'parallel.mesh',\n"
+        "       'parallel.frames', 'parallel.launch'}\n"
         "assert {'uslam_tpu_torch.' + n for n in new} <= set(names) and len(names) >= 55, names\n"
         "from uslam_tpu_torch import FixedLagSmoother, OnlineSlam\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'uslam_tpu'))\n"
@@ -131,3 +132,32 @@ def test_cuda_request_without_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_sequence(_port_sequence(), config_to_port(CFG), device="cuda")
+
+
+LAZY_TOP_LEVEL = ("AUVSlam", "run_sequence", "SlamResult", "OnlineSlam", "FixedLagSmoother")
+
+
+def test_top_level_names_match_jax_package():
+    """``import uslam_tpu_torch`` gives the JAX package's top-level names
+    (version, the six config classes, the lazy entry points) and imports no
+    torch module until an entry point is asked for."""
+    import types
+
+    import uslam_tpu
+    import uslam_tpu_torch
+
+    def names(mod):
+        return {n for n in vars(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), types.ModuleType)}
+
+    assert names(uslam_tpu_torch) == names(uslam_tpu)
+    assert uslam_tpu_torch.__version__ == uslam_tpu.__version__
+    for name in sorted(names(uslam_tpu)) + list(LAZY_TOP_LEVEL):
+        assert getattr(uslam_tpu_torch, name).__name__ == getattr(uslam_tpu, name).__name__
+    code = ("import sys, uslam_tpu_torch as u\n"
+            "u.UslamConfig, u.SolverConfig, u.__version__\n"
+            "assert 'torch' not in sys.modules, 'torch'\n"
+            "u.run_sequence, u.AUVSlam, u.SlamResult\nprint('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert out.stdout.strip() == "ok", out.stderr

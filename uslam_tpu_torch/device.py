@@ -22,9 +22,10 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def cast_tree(tree, dtype: torch.dtype, device):
+def cast_tree(tree, dtype: torch.dtype | None, device):
     """Container tree (NamedTuples of tensors) on ``device`` with every
-    floating leaf cast to ``dtype``; integer leaves keep their type."""
+    floating leaf cast to ``dtype`` (None: kept); integer leaves keep their
+    type."""
     if hasattr(tree, "_fields"):
         return type(tree)(*(cast_tree(x, dtype, device) for x in tree))
     return tree.to(device=device, dtype=dtype if tree.is_floating_point() else tree.dtype)

@@ -44,6 +44,10 @@ the pairwise fallback sums per frame by
 :func:`uslam_tpu_torch.solvers.bands.frame_sum` (JAX's
 ``_chunked_frame_sum``), in a fixed order for the same reason. A failed
 panel Cholesky raises.
+
+Sharded over landmarks (``group``), as :func:`solve_schur_banded` says:
+one all-reduce of the correction band, one all-gather of the landmark
+delta.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from uslam_tpu_torch.collectives import all_gather_rows, all_reduce_sum
 from uslam_tpu_torch.device import cast_tree
 from uslam_tpu_torch.graph.builder import StereoObservations
 from uslam_tpu_torch.graph.values import BIAS_DIM, FRAME_DIM, LM_DIM, POSE_DIM
@@ -423,6 +428,7 @@ def solve_schur_banded(
     corr_window: int = 0,
     corr_lm_chunk: int = 128,
     check=None,
+    group=None,
 ):
     """Banded counterpart of :func:`uslam_tpu_torch.solvers.schur.solve_schur`
     (same delta layout [frames(9N), bias(6), landmarks(3M)]; with
@@ -435,14 +441,24 @@ def solve_schur_banded(
     :func:`measure_corr_window`). Runs in float64 and returns the
     linearization's type (module docstring). ``check`` (the LM's
     ``debug_nans``) is called on the banded reduction and on the reduced
-    solve. The multi-device form (``axis_name``) is not ported."""
+    solve.
+
+    ``group``: landmark-sharded as in
+    :func:`uslam_tpu_torch.solvers.schur.solve_schur` (this rank's slice of
+    ``lm_obs_idx``/``lm_obs_mask``, the rest the same on every rank). The
+    correction band B_corr, g_corr and the landmark part of g.delta are
+    summed over the group, the panel factorization runs on every rank, and
+    the landmark delta is gathered. Correction chunks start at the slice's
+    first landmark; :func:`measure_corr_window` slides over every start."""
     out_dtype = lin.stereo_r.dtype
     if out_dtype != torch.float64:
         dev = lin.stereo_r.device
         out = solve_schur_banded(
             cast_tree(lin, torch.float64, dev), cast_tree(stereo, torch.float64, dev),
-            num_poses, num_landmarks, damping, band_w, panel, refine_iters, jitter,
-            diag_damping, return_aux, corr_window, corr_lm_chunk, check,
+            num_poses, num_landmarks, damping, band_w, panel=panel,
+            refine_iters=refine_iters, jitter=jitter, diag_damping=diag_damping,
+            return_aux=return_aux, corr_window=corr_window, corr_lm_chunk=corr_lm_chunk,
+            check=check, group=group,
         )
         if return_aux:
             return out[0].to(out_dtype), out[1].to(out_dtype)
@@ -462,6 +478,8 @@ def solve_schur_banded(
         W, Y, g_l, cam_g, stereo.lm_obs_mask, n, band_w,
         corr_window=corr_window, lm_chunk=corr_lm_chunk,
     )
+    all_reduce_sum(B_corr, group)
+    all_reduce_sum(g_corr, group)
     bands = assemble_cam_bands(lin, stereo, n, damping, diag_damping)
     band, bias_col, bb, g, gb = _frame_band(bands, B_corr, g_corr, n, band_w)
     if check:
@@ -523,11 +541,14 @@ def solve_schur_banded(
     # dl = Hll^-1 (g_l - sum_k W_mk^T dpose[cam_g]); padded slots have W = 0.
     t = torch.einsum("mkab,mka->mb", W, dpose[cam_g])
     delta_l = torch.einsum("mab,mb->ma", Hll_inv, g_l - t)
+    if return_aux:
+        g_dot_l = all_reduce_sum(torch.sum(g_l * delta_l), group)
+    delta_l = all_gather_rows(delta_l, group)
     delta = torch.cat([frames.reshape(-1), dbias, delta_l.reshape(-1)])
     if return_aux:
         g_dot = (
             torch.sum(bands.gp * dpose) + torch.sum(bands.gv * frames[:, POSE_DIM:])
-            + bands.gb @ dbias + torch.sum(g_l * delta_l)
+            + bands.gb @ dbias + g_dot_l
         )
         return delta, g_dot
     return delta

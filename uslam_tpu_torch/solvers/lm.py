@@ -25,16 +25,24 @@ NaN and Inf: the linearization, the landmark Schur or banded reduction (or
 the dense assembly), the reduced solve, the step and the new error. The
 first non-finite value raises ``FloatingPointError`` naming its stage.
 With the flag off no check runs and no host read is added.
+
+``group`` runs the same policy landmark-sharded over a ``torch.distributed``
+process group (:func:`uslam_tpu_torch.parallel.mesh.sharded_optimize_lm`):
+every rank runs the host loop, the solves carry the collectives, and the
+errors the loop decides on are the first rank's, so every rank takes the
+same branch.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from uslam_tpu_torch.collectives import any_rank, from_first_rank
 from uslam_tpu_torch.config import SolverConfig
 from uslam_tpu_torch.geometry.camera import StereoCamera
 from uslam_tpu_torch.graph.builder import GraphArrays
@@ -45,12 +53,14 @@ from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.schur import solve_schur
 
 
-def check_finite(stage: str, *tensors: torch.Tensor) -> None:
+def check_finite(stage: str, *tensors: torch.Tensor, group=None) -> None:
     """``debug_nans``: raise FloatingPointError naming ``stage`` when one of
-    ``tensors`` holds a NaN or an Inf (one host read per tensor)."""
-    for t in tensors:
-        if not bool(torch.isfinite(t).all()):
-            raise FloatingPointError(f"debug_nans: non-finite value after the {stage} stage")
+    ``tensors`` holds a NaN or an Inf (one host read). With ``group``, when
+    one does on any rank: the tensors may be shard-local, and every rank
+    raises together."""
+    bad = torch.stack([~torch.isfinite(t).all() for t in tensors]).any()
+    if any_rank(bad, group):
+        raise FloatingPointError(f"debug_nans: non-finite value after the {stage} stage")
 
 
 class LMStats(NamedTuple):
@@ -70,8 +80,13 @@ def optimize_lm(
     gravity: float,
     cfg: SolverConfig = SolverConfig(),
     huber_delta: float | None = None,
+    group=None,
 ) -> tuple[Values, LMStats]:
-    """Run LM to convergence."""
+    """Run LM to convergence. ``group``: landmark-sharded (module
+    docstring); ``graph.stereo.lm_obs_idx``/``lm_obs_mask`` hold this
+    rank's slice, everything else is the same on every rank."""
+    if group is not None and cfg.linear_solver != "schur":
+        raise ValueError("sharded LM requires the schur linear solver")
     if cfg.reduced_solver == "banded" and cfg.band_width <= 0:
         raise ValueError(
             "reduced_solver='banded' needs band_width >= the max track "
@@ -82,10 +97,9 @@ def optimize_lm(
     # the JAX loop's device-side ones did.
     f = {torch.float32: np.float32, torch.float64: np.float64}[initial.pose_trans.dtype]
 
-    def err_fn(values: Values):
-        return graph_error(
-            graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta
-        )
+    def err_fn(values: Values) -> float:
+        err = graph_error(graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta)
+        return f(from_first_rank(err, group).item())
 
     def lin_fn(values: Values):
         return linearize_graph(
@@ -98,7 +112,9 @@ def optimize_lm(
     # (same rule as the JAX package).
     floored_diag = diag_damping and min(cfg.lambda_initial, cfg.lambda_lower_bound) >= 1e-7
     jitter = cfg.cholesky_jitter if floored_diag else max(cfg.cholesky_jitter, 1e-7)
-    check = check_finite if cfg.debug_nans else None
+    check = None
+    if cfg.debug_nans:
+        check = check_finite if group is None else functools.partial(check_finite, group=group)
 
     def solve(lin, lam):
         if cfg.reduced_solver == "banded":
@@ -113,6 +129,7 @@ def optimize_lm(
                 diag_damping=diag_damping,
                 corr_window=cfg.banded_corr_window,
                 check=check,
+                group=group,
             )
         if cfg.linear_solver == "schur":
             return solve_schur(
@@ -125,6 +142,7 @@ def optimize_lm(
                 diag_damping=diag_damping,
                 eliminate_velocities=cfg.eliminate_velocities,
                 check=check,
+                group=group,
             )
         H, g = assemble_dense_with_landmarks(
             lin, graph.stereo.cam_idx, graph.stereo.lm_idx, n, m
@@ -147,7 +165,7 @@ def optimize_lm(
 
     values = initial
     lin = linearize(values)
-    error = f(err_fn(values).item())
+    error = err_fn(values)
     init_error = error
     lam = f(cfg.lambda_initial)
     iterations, stall, converged = 0, 0, False
@@ -155,7 +173,7 @@ def optimize_lm(
         candidate = values_retract(values, solve(lin, lam))
         if check:
             check("step", *candidate)
-        new_error = f(err_fn(candidate).item())
+        new_error = err_fn(candidate)
         if check and not math.isfinite(new_error):
             raise FloatingPointError("debug_nans: non-finite value after the new error stage")
         if not math.isfinite(new_error):

@@ -30,12 +30,18 @@ against the full matrix. On such graphs a float32 Schur LM stops far above
 the dense one. tests/test_torch_single_obs.py and chip_smoke.py hold the
 float32-input step to the float64 dense step. Products run without TF32
 (checked by the pipeline).
+
+Sharded over landmarks (``group``, :mod:`uslam_tpu_torch.parallel.mesh`):
+each rank eliminates its contiguous slice of the landmark grouping, one
+all-reduce sums the corrections H_corr and g_corr, the reduced solve runs
+on every rank, and one all-gather collects the landmark delta.
 """
 
 from __future__ import annotations
 
 import torch
 
+from uslam_tpu_torch.collectives import all_gather_rows, all_reduce_sum
 from uslam_tpu_torch.device import cast_tree
 from uslam_tpu_torch.graph.builder import StereoObservations
 from uslam_tpu_torch.graph.values import BIAS_DIM, LM_DIM, POSE_DIM, VEL_DIM
@@ -114,6 +120,7 @@ def solve_schur(
     diag_damping: bool = False,
     eliminate_velocities: bool = False,
     check=None,
+    group=None,
 ):
     """Solve the damped normal equations; returns delta over the global
     tangent layout [frames(9N), bias(6), landmarks(3M)].
@@ -124,15 +131,23 @@ def solve_schur(
     chain before the reduced factorization (:func:`_solve_vel_eliminated`).
     The work runs in float64 (module docstring); delta and g.delta come back
     in the linearization's type. ``check`` (the LM's ``debug_nans``) is
-    called on the landmark Schur reduction and on the reduced solve. The
-    multi-device form of the JAX package (``axis_name``) is not ported."""
+    called on the landmark Schur reduction and on the reduced solve.
+
+    ``group`` (a ``torch.distributed`` process group, the JAX package's
+    ``axis_name``): ``stereo.lm_obs_idx``/``lm_obs_mask`` hold this rank's
+    contiguous slice of the landmarks, in rank order, and every other input
+    is the same on every rank; H_corr, g_corr and the landmark part of
+    g.delta are summed over the group and the landmark delta is gathered,
+    so every rank returns the whole delta."""
     out_dtype = lin.stereo_r.dtype
     if out_dtype != torch.float64:
         delta = solve_schur(
             cast_tree(lin, torch.float64, lin.stereo_r.device),
             cast_tree(stereo, torch.float64, lin.stereo_r.device),
-            num_poses, num_landmarks, damping, cg, cg_iters, cg_tol, return_aux,
-            refine_iters, jitter, diag_damping, eliminate_velocities, check,
+            num_poses, num_landmarks, damping, cg=cg, cg_iters=cg_iters, cg_tol=cg_tol,
+            return_aux=return_aux, refine_iters=refine_iters, jitter=jitter,
+            diag_damping=diag_damping, eliminate_velocities=eliminate_velocities,
+            check=check, group=group,
         )
         if return_aux:
             return delta[0].to(out_dtype), delta[1].to(out_dtype)
@@ -141,27 +156,31 @@ def solve_schur(
     pose_total = POSE_DIM * n
 
     Hll_inv, g_l, U, V = landmark_elimination(lin, stereo, n, damping, diag_damping)
-    m = g_l.shape[0]
+    m = g_l.shape[0]                                      # this rank's landmarks
     bands = assemble_cam_bands(lin, stereo, n, damping, diag_damping)
-    H_corr = U @ V.T                                      # (6N, 6N)
-    g_corr = U @ g_l.reshape(-1)                          # (6N,)
+    H_corr = all_reduce_sum(U @ V.T, group)               # (6N, 6N)
+    g_corr = all_reduce_sum(U @ g_l.reshape(-1), group)   # (6N,)
     if check:
         check("landmark Schur", Hll_inv, g_l, H_corr, g_corr)
 
     def back_substitute(dpose):
-        """dl = Hll^-1 (g_l - V^T dpose)."""
+        """dl = Hll^-1 (g_l - V^T dpose) on this rank's landmarks; returns
+        (every rank's dl in rank order, g.delta over the landmarks or None
+        without ``return_aux``)."""
         rhs = g_l - (V.T @ dpose).reshape(m, LM_DIM)
-        return torch.einsum("mab,mb->ma", Hll_inv, rhs)
+        dl = torch.einsum("mab,mb->ma", Hll_inv, rhs)
+        g_dot_l = all_reduce_sum(torch.sum(g_l * dl), group) if return_aux else None
+        return all_gather_rows(dl, group), g_dot_l
 
     if eliminate_velocities and not cg:
         dpose, dvel, dbias, g_dot_cam = _solve_vel_eliminated(
             bands, H_corr, g_corr, n, refine_iters, jitter, check
         )
-        delta_l = back_substitute(dpose)
+        delta_l, g_dot_l = back_substitute(dpose)
         frames = torch.cat([dpose.reshape(n, POSE_DIM), dvel], dim=1)
         delta = torch.cat([frames.reshape(-1), dbias, delta_l.reshape(-1)])
         if return_aux:
-            return delta, g_dot_cam + torch.sum(g_l * delta_l)
+            return delta, g_dot_cam + g_dot_l
         return delta
 
     H_red, g_c_raw = expand_cam_dense(bands, pp_extra=-H_corr)
@@ -174,14 +193,14 @@ def solve_schur(
         check("reduced solve", delta_perm)
 
     dpose = delta_perm[:pose_total]
-    delta_l = back_substitute(dpose)
+    delta_l, g_dot_l = back_substitute(dpose)
     # Camera delta back to the interleaved frame layout.
     dvel = delta_perm[pose_total : pose_total + VEL_DIM * n].reshape(n, VEL_DIM)
     frames = torch.cat([dpose.reshape(n, POSE_DIM), dvel], dim=1)
     delta_c = torch.cat([frames.reshape(-1), delta_perm[pose_total + VEL_DIM * n :]])
     delta = torch.cat([delta_c, delta_l.reshape(-1)])
     if return_aux:
-        return delta, g_c_raw @ delta_perm + torch.sum(g_l * delta_l)
+        return delta, g_c_raw @ delta_perm + g_dot_l
     return delta
 
 
