@@ -7,8 +7,9 @@ NVIDIA GPU, and check what comes out.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``,
-   g++ the C++ bag scanner from ``uslam_tpu_torch/native``.
+2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``
+   (fast_harris, hamming, preintegrate), g++ the C++ bag scanner from
+   ``uslam_tpu_torch/native``.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (FAST+Harris on 16 images at each of
    the three pyramid levels of 1920x1080, bit-identical on the interior,
@@ -20,8 +21,16 @@ Phases, each of which raises (exit code != 0) on failure:
    N flush+kernel pairs less that of N flushes), beside its bound (the
    larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s). The
    same at the online path's per-keyframe shapes: FAST+Harris on one
-   stereo pair at each level, Hamming on its 2 matrices of 48x48. Then a
-   torch.profiler breakdown of one front-end chunk's device time.
+   stereo pair at each level, Hamming on its 2 matrices of 48x48. The IMU
+   preintegration kernel on the intervals the packer gives the 1k solve,
+   the slice, the online window and the 20 Hz clip (also with S cut to 16),
+   each with an all-padding interval, in float32 and float64: against its
+   plain version and the forward-mode Jacobian (torch.func.jacfwd) of the
+   value-only loop to ``PREINT_RTOL``, and bit for bit against the eager
+   path it replaces (the loop under torch.func.jvp, the linearizer's 24
+   tangent rows per interval); its time at the linearizer's and the
+   error's layouts beside its bound. Then a torch.profiler breakdown of one
+   front-end chunk's device time.
 4. slice: ``run_sequence`` with the default ``UslamConfig()`` (Schur +
    velocity elimination) on a rendered 20 s synthetic dive (100 stereo
    keyframes at 1920x1080, 200 landmarks, 200 Hz IMU); checks the launch
@@ -41,7 +50,11 @@ Phases, each of which raises (exit code != 0) on failure:
 7. 1k: bench.py's 1000-pose precomputed-feature solve with the default
    solver and the polish (at most 2 iterations, as bench.py runs it, then
    the default 12); its ATEs against ground truth and the DVL odometry,
-   and its LM-iteration profile.
+   and its LM-iteration profile. Between the solve and the polish, at the
+   solution: the CUDA-graphed ``linearize_graph`` and ``graph_error`` held
+   to their eager bodies bit for bit (float32, and float64 as the polish
+   runs them), and each one's host ms per LM iteration, eager and graphed,
+   with one preintegration launch per call.
 8. online: the first ``ONLINE_SECONDS`` of phase 3's dive (uint8 frames)
    streamed message by message through ``OnlineSlam(UslamConfig(),
    window=10, solve_during_fill=False)`` three times: (a) the host
@@ -53,7 +66,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``ONLINE_DIVERGENCE_M`` of (a); prints per-keyframe host ms (median,
    p90) of the steady keyframes, the timing split, LM iterations, one
    steady keyframe under torch.profiler, and the window's landmarks by
-   observation count.
+   observation count; (a)'s last window graphed against eager bit for bit;
+   the CUDA-graph captures of each pass, none after the first steady
+   keyframe on (b) and (c).
 9. survey: bench.py's scaling sweep (bench.py:517-628) on the banded
    solver: a survey trajectory of 2000, then 4000 poses (precomputed
    features, packed by the port), ``reduced_solver="banded"`` with band
@@ -117,6 +132,10 @@ Phases, each of which raises (exit code != 0) on failure:
    (the 1k solve, the 2000-pose survey at its initial values and a 2 s
    dive's first chunk made for it).
 
+After each of phases 4-12 the CUDA graphs it captured and replayed are
+printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2, the
+preintegration checks of phase 3 and phase 7's solve and graph checks.
+
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
 nothing of the JAX package ``uslam_tpu``.
@@ -164,6 +183,24 @@ FAST_HARRIS_OPS_PER_PX = 92
 # it must agree with it exactly (tolerance 0) on pixels at least BORDER px
 # inside the border, where the versions differ (wrap vs clamp).
 BORDER = 5
+# The IMU preintegration kernel against its plain version and against the
+# forward-mode Jacobian (torch.func.jacfwd) of the value-only loop, relative
+# to each output's largest entry: float64 to 1e-12; float32 to 1e-5 (the
+# plain version's sums run in other CUDA reduction orders than the loop's,
+# over a 64-step recursion). Against the eager path it replaces (the loop
+# under torch.func.jvp) the kernel must be bit-identical: it repeats that
+# path's operations in their order.
+PREINT_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
+# Float operations of one row and one sample, counted from the loop body of
+# csrc/preintegrate.cu (an FMA two, sin, cos and sqrt one each; the branch
+# that real samples take): 118 for the value and 196 for each of the 6 bias
+# tangent columns. The kernel computes the value once per column; the bound
+# counts it once.
+PREINT_OPS_PER_ROW_SAMPLE = 118 + 6 * 196
+# The linearizer's tangent rows per IMU interval (pose_i, vel_i, pose_j,
+# vel_j, bias), each a row of the kernel.
+IMU_TANGENT_ROWS = 24
+FP64_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores (data sheet)
 # Phase 8: the online stream's first seconds (5 keyframes per second), the
 # window, and which steady keyframe goes under the profiler.
 ONLINE_SECONDS = 4.0
@@ -252,10 +289,10 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     return run(both) - run(flush)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound in ms, what bounds it): the larger of the bytes over the HBM
-    rate and the operations over the fp32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    rate and the operations over the fp32 rate (or ``ops_per_s``)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -325,6 +362,254 @@ def check_hamming(pairs) -> dict:
             raise AssertionError(f"hamming disagrees with its plain version on {label}")
         worst_err = max(worst_err, err)
     return {"max_abs_err": float(worst_err)}
+
+
+def preintegrate_cases(cfg) -> list:
+    """IMU intervals as the main path packs them (``pack_sequence``), each
+    with one all-padding interval appended (what the packer gives a graph of
+    one pose): the 1k solve's, the slice's, the online window's (the slice's
+    first ONLINE_WINDOW - 1 intervals) and the 20 Hz clip's, which has 10
+    samples per interval, also with S cut to 16. (label, ImuIntervalData
+    of float32 numpy arrays)."""
+    import numpy as np
+
+    from uslam_tpu_torch.factors.imu import ImuIntervalData
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+
+    specs = {
+        "1k": SyntheticSpec(duration=200.0, keyframe_rate=5.0, num_landmarks=512, omega=0.15,
+                            odom_drift_rate=0.02, feature_noise_px=0.3, seed=0),
+        "slice": SyntheticSpec(duration=20.0, odom_drift_rate=0.05),
+        "20 Hz": SyntheticSpec(**CLI_CLIP),
+    }
+
+    def padded(d):
+        return ImuIntervalData(*(np.concatenate([x, np.zeros_like(x[:1])]) for x in d))
+
+    cases = []
+    for label, spec in specs.items():
+        seq = generate_synthetic_sequence(spec, cfg.camera, render_images=False,
+                                          omit_features=True)
+        data = pack_sequence(seq, cfg)[0].imu.data
+        cases.append((label, padded(data)))
+        if label == "slice":
+            cases.append(("online window", padded(
+                ImuIntervalData(*(x[:ONLINE_WINDOW - 1] for x in data)))))
+        if label == "20 Hz":
+            cases.append(("20 Hz, S cut to 16", padded(ImuIntervalData(
+                data.acc[:, :16], data.gyro[:, :16], data.dt[:, :16]))))
+    return cases
+
+
+def preintegrate_oracle(data, bias):
+    """``preintegrate_loop``'s value and its bias Jacobian by
+    ``torch.func.jacfwd``: ((R, 10), (R, 10, 6), T). The Jacobian is taken
+    with respect to one offset added to every row's bias; each row depends
+    on its own bias alone, so that Jacobian is each row's."""
+    import torch
+
+    from uslam_tpu_torch.factors import imu
+
+    def f(offset):
+        d = imu.preintegrate_loop(data, bias + offset)
+        return torch.cat([d.delta_q, d.delta_v, d.delta_p], -1)
+
+    zero = bias.new_zeros(6)
+    jac = torch.func.jacfwd(f)(zero)
+    value = f(zero)
+    return (value.reshape(-1, 10), jac.reshape(-1, 10, 6),
+            imu.preintegrate_loop(data, bias[0]).dt_total)
+
+
+def preintegrate_eager(data, bias6):
+    """The eager path the kernel replaces, in the linearizer's layout:
+    ``preintegrate_loop`` at ``bias6 + d[..., 18:24]`` under
+    ``torch.func.jvp``, d the (24, n, 24) tangent rows. ((n, 10) values,
+    (n, 10, 6) bias Jacobian, T)."""
+    import torch
+
+    from uslam_tpu_torch.factors import imu
+
+    n = data.acc.shape[0]
+    eye = torch.eye(IMU_TANGENT_ROWS, dtype=bias6.dtype, device=bias6.device)
+    tangent = eye.reshape(IMU_TANGENT_ROWS, 1, IMU_TANGENT_ROWS).expand(
+        IMU_TANGENT_ROWS, n, IMU_TANGENT_ROWS)
+
+    def f(d):
+        o = imu.preintegrate_loop(data, bias6 + d[..., 18:24])
+        return torch.cat([o.delta_q, o.delta_v, o.delta_p], -1)
+
+    value, jt = torch.func.jvp(f, (torch.zeros_like(tangent),), (tangent,))
+    return value[0], jt[18:24].permute(1, 2, 0), imu.preintegrate_loop(data, bias6).dt_total
+
+
+def preint_bytes_ops(data, rows: int):
+    """(bytes, float operations) of one launch over ``rows`` rows: the
+    samples read once per interval, the biases, and the outputs (q, v, p,
+    the (10, 6) Jacobian per row, T per interval)."""
+    n, S = data.acc.shape[0], data.acc.shape[1]
+    item = data.acc.element_size()
+    n_bytes = (n * S * 7 + rows * 6 + rows * (10 + 60) + n) * item
+    return n_bytes, rows * S * PREINT_OPS_PER_ROW_SAMPLE
+
+
+def check_preintegrate(cases) -> dict:
+    """The preintegration kernel on the card, in float32 and float64: (a)
+    against its plain version and the oracle (:func:`preintegrate_oracle`)
+    at the linearizer's layout with a random bias per row, to PREINT_RTOL;
+    (b) bit for bit against the eager path it replaces
+    (:func:`preintegrate_eager`) at the linearizer's layout; then its time
+    at that layout and at the error's (one bias for every interval), beside
+    its bound and the plain version's time."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.factors import imu
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"max_abs_err": 0.0, "max_rel_err": {}, "times": {}}
+    for label, d_np in cases:
+        for dtype in (torch.float32, torch.float64):
+            data = imu.ImuIntervalData(*(torch.from_numpy(np.asarray(x)).to("cuda", dtype)
+                                         for x in d_np))
+            n, S = data.acc.shape[0], data.acc.shape[1]
+            scale = torch.full((6,), 0.05, dtype=dtype, device="cuda")
+            scale[3:] = 0.005
+            bias = torch.randn((IMU_TANGENT_ROWS, n, 6), generator=gen, device="cuda",
+                               dtype=dtype) * scale
+            dk, jk = imu.preintegrate_cuda(data, bias)
+            dp, jp = imu.preintegrate_plain(data, bias)
+            vo, jo, to = preintegrate_oracle(data, bias)
+            torch.cuda.synchronize()
+            vk = torch.cat([dk.delta_q, dk.delta_v, dk.delta_p], -1).reshape(-1, 10)
+            vp = torch.cat([dp.delta_q, dp.delta_v, dp.delta_p], -1).reshape(-1, 10)
+            jk, jp = jk.reshape(-1, 10, 6), jp.reshape(-1, 10, 6)
+            rel, abs_plain = {}, 0.0
+            for name, sl in (("q", slice(0, 4)), ("v", slice(4, 7)), ("p", slice(7, 10))):
+                rel[name] = float((vk[:, sl] - vo[:, sl]).abs().max() / vo[:, sl].abs().max())
+                rel[f"J_{name}"] = float((jk[:, sl] - jo[:, sl]).abs().max()
+                                         / jo[:, sl].abs().max())
+                abs_plain = max(abs_plain, float((vk[:, sl] - vp[:, sl]).abs().max()),
+                                float((jk[:, sl] - jp[:, sl]).abs().max()))
+            rel["t"] = float((dk.dt_total - to).abs().max() / to.abs().max())
+            abs_plain = max(abs_plain, float((dk.dt_total - dp.dt_total).abs().max()))
+            pad_ok = bool(torch.isfinite(jk).all()) and bool(
+                (jk.reshape(IMU_TANGENT_ROWS, n, 10, 6)[:, -1] == 0).all())
+            worst = max(rel.values())
+            tol = PREINT_RTOL[str(dtype)]
+            # (b): one bias for every row, as the LM linearizes.
+            bias6 = bias[0, 0]
+            ve, je, te = preintegrate_eager(data, bias6)
+            d6, j6 = imu.preintegrate_cuda(data, bias6.expand(IMU_TANGENT_ROWS, n, 6))
+            v6 = torch.cat([d6.delta_q, d6.delta_v, d6.delta_p], -1)
+            bitwise = (torch.equal(v6[0], ve) and torch.equal(j6[0], je)
+                       and torch.equal(d6.dt_total, te))
+            log(f"  preintegrate {label} {str(dtype)[6:]} ({IMU_TANGENT_ROWS} x {n} rows, S={S}):"
+                f" relative error vs jacfwd of the loop {worst!r} (tol {tol}; by output "
+                f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }), max abs vs plain "
+                f"{abs_plain!r}; padded interval: Jacobian finite and 0: {pad_ok}; bit-identical "
+                f"to the eager jvp of the loop: {bitwise}")
+            if worst > tol or not pad_ok or not bitwise:
+                raise AssertionError(f"preintegrate disagrees with its oracle on {label} {dtype}")
+            out["max_abs_err"] = max(out["max_abs_err"], abs_plain)
+            out["max_rel_err"][str(dtype)] = max(out["max_rel_err"].get(str(dtype), 0.0), worst)
+
+            lin_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, bias), KERNEL_REPS)
+            err_bias = bias[0, 0]
+            err_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, err_bias), KERNEL_REPS)
+            plain_ms = cuda_ms(lambda: imu.preintegrate_plain(data, bias), PLAIN_REPS)
+            rate = FP32_OPS_PER_S if dtype == torch.float32 else FP64_OPS_PER_S
+            lin_b, lin_by = bound_ms(*preint_bytes_ops(data, IMU_TANGENT_ROWS * n), rate)
+            err_b, err_by = bound_ms(*preint_bytes_ops(data, n), rate)
+            out["times"][(label, str(dtype))] = dict(
+                ms=lin_ms, bound_ms=lin_b, bound_by=lin_by, plain_ms=plain_ms,
+                err_ms=err_ms, err_bound_ms=err_b, err_bound_by=err_by)
+            log(f"    time: linearizer layout {lin_ms!r} ms, bound {lin_b!r} ms ({lin_by}), share "
+                f"{lin_b / lin_ms!r}, plain {plain_ms!r} ms; error layout ({n} rows) {err_ms!r} "
+                f"ms, bound {err_b!r} ms ({err_by}), share {err_b / err_ms!r}")
+    return out
+
+
+def compiled_vs_eager(graph, values, cam, sig, huber, label: str) -> dict:
+    """The graphed linearize_graph and graph_error against their eager
+    bodies on the same inputs: bit for bit."""
+    import torch
+
+    from uslam_tpu_torch.solvers import linearize as L
+
+    lin_g = L.linearize_graph(graph, values, cam, *sig, huber)
+    lin_e = L.linearize_graph_eager(graph, values, cam, *sig, huber)
+    err_g = L.graph_error(graph, values, cam, *sig, huber)
+    err_e = L.graph_error_eager(graph, values, cam, *sig, huber)
+    torch.cuda.synchronize()
+    diffs = {f: float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+             for f, a, b in zip(lin_g._fields, lin_g, lin_e)}
+    diffs["graph_error"] = float((err_g.double() - err_e.double()).abs())
+    same = all(torch.equal(a, b) for a, b in zip(lin_g, lin_e)) and torch.equal(err_g, err_e)
+    dtype = str(values.pose_trans.dtype)[6:]
+    log(f"  graphed vs eager, {label} ({dtype}): bit-identical {same}; largest difference "
+        f"{max(diffs.values())!r}" + ("" if same else f" by field {diffs}"))
+    return {f"graphed linearize_graph and graph_error = eager, {label} ({dtype}), bit for bit":
+            same}
+
+
+def compiled_1k(one_k: dict) -> dict:
+    """On the 1k problem at its solution: the graphed linearization and
+    error held to their eager bodies (float32, and float64 as the polish
+    runs them), then per LM iteration the host ms of each (median of 3),
+    eager (with the preintegration kernel) and graphed, the captures they
+    made and the preintegration launches of one graphed call."""
+    import torch
+
+    from uslam_tpu_torch.device import cast_tree
+    from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers import linearize as L
+
+    cfg, r = one_k["cfg"], one_k["result"]
+    g, v = r.graph, r.values
+    cam = StereoCamera.from_config(cfg.camera, device="cuda")
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    huber = cfg.noise.stereo_huber_delta
+    checks = compiled_vs_eager(g, v, cam, sig, huber, "1k")
+    checks.update(compiled_vs_eager(
+        cast_tree(g, torch.float64, "cuda"), cast_tree(v, torch.float64, "cuda"),
+        cast_tree(cam, torch.float64, "cuda"), sig, None, "1k"))
+    t = {}
+    for name, fn in (("linearize eager", L.linearize_graph_eager),
+                     ("linearize graphed", L.linearize_graph),
+                     ("graph_error eager", L.graph_error_eager),
+                     ("graph_error graphed", L.graph_error)):
+        t[name], _ = _median_ms(lambda fn=fn: fn(g, v, cam, *sig, huber))
+    kernels.reset_launch_counts()
+    before = sum(compiled.captures.values())
+    L.linearize_graph(g, v, cam, *sig, huber)
+    per_lin = kernels.launch_counts["preintegrate"]
+    kernels.reset_launch_counts()
+    L.graph_error(g, v, cam, *sig, huber)
+    per_err = kernels.launch_counts["preintegrate"]
+    log(f"  1k LM iteration (N={v.num_poses}, host ms, median of 3, synchronized): linearize "
+        f"eager {t['linearize eager']!r}, graphed {t['linearize graphed']!r} (PERF.md section 5"
+        f" before: 885.5); graph_error eager {t['graph_error eager']!r}, graphed "
+        f"{t['graph_error graphed']!r} (before: 62-80); captures so far "
+        f"{dict(compiled.captures)}, {sum(compiled.captures.values()) - before} by these calls; "
+        f"preintegrate launches per linearization {per_lin}, per error {per_err}")
+    checks["1k: one preintegrate launch per graphed linearization and per error"] = (
+        per_lin == 1 and per_err == 1)
+    return {"checks": checks, "ms": t}
+
+
+def log_graphs(label: str) -> dict:
+    """Print and reset the CUDA-graph captures and replays since the last
+    call (per function)."""
+    from uslam_tpu_torch.solvers import compiled
+
+    out = {"captures": dict(compiled.captures), "replays": dict(compiled.replays)}
+    log(f"  CUDA graphs, {label}: captures {out['captures']}, replays {out['replays']}")
+    compiled.reset_counts()
+    return out
 
 
 def sass_loop_summary(lib_path: str, kernel: str = "fast_harris_kernel") -> str:
@@ -721,9 +1006,13 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
 
     from uslam_tpu_torch.frontend import kernels
     from uslam_tpu_torch.online import OnlineSlam
+    from uslam_tpu_torch.solvers import compiled
 
     online = OnlineSlam(cfg, window=ONLINE_WINDOW, solve_during_fill=False, device="cuda", **mode)
     call_ms, profiled = {}, None
+    # CUDA-graph captures before the second steady keyframe: the later ones
+    # replay the graphs the first steady keyframe captured.
+    captures_at = None
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for kind, t, i in events:
@@ -742,10 +1031,13 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
             online.add_stereo_frame(t, left[i], right[i])
             if online.keyframes > k:
                 call_ms[k] = (time.perf_counter() - ts) * 1e3
+        if captures_at is None and online.keyframes == ONLINE_WINDOW + 2:
+            captures_at = sum(compiled.captures.values())
     online.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
+    steady_captures = sum(compiled.captures.values()) - captures_at
     traj = online.trajectory()
     n = len(traj)
     # Steady state: from the second marginalization on (keyframe
@@ -766,12 +1058,17 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
         "median_ms": float(np.median(steady)), "p90_ms": float(np.percentile(steady, 90)),
         "lm_iters": float(np.median(iters)) if iters else float("nan"),
         "ate": ate_rmse(traj, gt), "ate_odom": ate_rmse(odom, gt), "profiled": profiled,
+        "captures": dict(compiled.captures), "steady_captures": steady_captures,
     }
     log(f"online pass {label}: {out['keyframes']} keyframes ({out['steady']} steady, one more "
         f"profiled) in {wall!r} s = {out['keyframes'] / wall!r} keyframes/s; steady ms per "
         f"keyframe median {out['median_ms']!r}, p90 {out['p90_ms']!r}; launches {launches}")
     log(f"  steady split, medians (ms): {split}; LM iterations, median {out['lm_iters']!r} "
         f"(max {max(iters) if iters else None})")
+    log(f"  CUDA graphs: captures so far in the phase {out['captures']}, {steady_captures} of "
+        f"them after the first steady keyframe; preintegrate launches "
+        f"{launches['preintegrate']} ({launches['preintegrate'] / online.keyframes!r} per "
+        f"keyframe)")
     log(f"  ATE vs ground truth {out['ate']!r} m; DVL odometry {out['ate_odom']!r} m "
         f"(same {n} keyframes); host ms of every timed keyframe: "
         f"{[round(ms, 1) for ms in call_ms.values()]}")
@@ -800,7 +1097,13 @@ def online_phase(seq, cfg) -> dict:
         f"{left[frames[0]].shape} uint8, {len(events)} messages; window {ONLINE_WINDOW}, "
         f"solve_during_fill=False, max_update_iters=4")
     a = online_pass("(a) host smoother", cfg, seq, events, left, right)
-    g, _ = a["online"].smoother._window_graph()
+    g, vals = a["online"].smoother._window_graph()
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+
+    window_checks = compiled_vs_eager(
+        g, vals, StereoCamera.from_config(cfg.camera, device="cuda"),
+        (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity),
+        cfg.noise.stereo_huber_delta, "(a)'s last online window")
     per_lm = np.bincount(g.stereo.lm_obs_mask.sum(1).long().cpu().numpy())
     log(f"  (a)'s last window: landmarks by observation count "
         f"{dict((k, int(c)) for k, c in enumerate(per_lm) if k and c)}")
@@ -810,17 +1113,23 @@ def online_phase(seq, cfg) -> dict:
     div = {p["label"]: float(np.linalg.norm(p["traj"] - a["traj"], axis=1).max()) for p in (b, c)}
     log(f"  divergence from (a), max over keyframes (m): {div}")
     log(f"online phase: {time.perf_counter() - t_phase!r} s")
-    checks = {}
+    checks = dict(window_checks)
     for p in passes:
         name = p["label"]
+        launches = p["launches"]
         checks[f"online {name}: fast_harris 3 and hamming 1 launches per keyframe"] = (
-            p["launches"] == {"fast_harris": 3 * p["keyframes"], "hamming": p["keyframes"]})
+            {k: launches[k] for k in ("fast_harris", "hamming")} == {"fast_harris": 3 * p["keyframes"],
+                                                           "hamming": p["keyframes"]})
+        checks[f"online {name}: preintegrate launched"] = launches["preintegrate"] > 0
         checks[f"online {name}: trajectory finite, one row per keyframe"] = (
             p["traj"].shape == (p["keyframes"], 3) and bool(np.isfinite(p["traj"]).all()))
         checks[f"online {name}: ATE <= {ONLINE_ATE_VS_ODOM} x the DVL odometry's"] = (
             p["ate"] <= ONLINE_ATE_VS_ODOM * p["ate_odom"])
         checks[f"online {name}: at least 8 steady keyframes"] = p["steady"] >= 8
     checks["online: keyframes equal across passes"] = len({p["keyframes"] for p in passes}) == 1
+    for p in (b, c):
+        checks[f"online {p['label']}: no CUDA-graph capture after the first steady keyframe"] = (
+            p["steady_captures"] == 0)
     checks["online (b): no pending keyframe after flush()"] = b["online"]._pending is None
     checks["online (b): fused steps ran"] = any(e.get("pipelined") for e in b["online"].timings)
     checks[f"online (b) within {ONLINE_DIVERGENCE_M} m of (a)"] = div[b["label"]] < ONLINE_DIVERGENCE_M
@@ -958,6 +1267,7 @@ def survey_solve(n_poses: int) -> dict:
     import torch
 
     from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.factors.imu import preintegrate_cuda
     from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.graph.packing import pack_sequence
     from uslam_tpu_torch.interop import to_port
@@ -994,6 +1304,12 @@ def survey_solve(n_poses: int) -> dict:
         corr_window=cw, jitter=scfg.cholesky_jitter, refine_iters=scfg.banded_refine_iters,
         diag_damping=True))
     del lin
+    # The preintegration kernel at the survey's linearizer layout (the
+    # primal recomputed for each of the 24 tangent rows of an interval).
+    preint_bias = r.values.bias + torch.zeros(
+        (IMU_TANGENT_ROWS, n - 1, 6), dtype=r.values.bias.dtype, device="cuda")
+    preint_ms = cuda_ms(lambda: preintegrate_cuda(graph.imu.data, preint_bias), KERNEL_REPS)
+    preint_bound, preint_by = bound_ms(*preint_bytes_ops(graph.imu.data, preint_bias.numel() // 6))
     t0 = time.perf_counter()
     vals_pol, info = polish_f64(graph, r.values, cam, *sig, scfg,
                                 max_iters=SURVEY_POLISH_ITERS, device="cuda")
@@ -1009,7 +1325,9 @@ def survey_solve(n_poses: int) -> dict:
     log(f"  LM: {m['lm_iterations']} iterations, converged={m['converged']}, error "
         f"{m['initial_error']!r} -> {m['final_error']!r}; solve {m['solve_seconds']!r} s; "
         f"per iteration at the solution (host ms, median of 3): linearize {t_lin!r}, banded "
-        f"solve {t_solve!r}")
+        f"solve {t_solve!r}; preintegrate kernel ({preint_bias.numel() // 6} rows of "
+        f"{graph.imu.data.acc.shape[1]} samples, float32) {preint_ms!r} ms, bound "
+        f"{preint_bound!r} ms ({preint_by}), share {preint_bound / preint_ms!r}")
     log(f"  peak device memory during the solve {peak_mib!r} MiB (graph and values before it: "
         f"{base_mib!r} MiB)")
     log(f"  ATE vs ground truth (observability-limited): initial {ate_init!r} -> final "
@@ -1025,6 +1343,7 @@ def survey_solve(n_poses: int) -> dict:
             "(observability-limited)")
     out = {
         "n": n, "graph": graph, "values": r.values, "cfg": cfg, "cost": cost,
+        "preint_ms": preint_ms,
         "checks": {
             **frame_sum_check(graph.stereo, n, f"survey {n_poses}"),
             f"survey {n_poses}: cost_vs_f64_opt <= {COST_VS_F64_OPT}": cost <= COST_VS_F64_OPT,
@@ -1040,7 +1359,8 @@ def survey_solve(n_poses: int) -> dict:
 def survey_phase() -> tuple:
     """Phase 9: the survey sizes on the banded solver, the banded step held
     to the Schur step at the first size, and the long-track a0 graph.
-    Returns (checks, the first size's graph, solution and config)."""
+    Returns (checks, the first size's graph, solution and config, with the
+    preintegration kernel's ms at each size)."""
     import torch
 
     from uslam_tpu_torch.config import UslamConfig
@@ -1050,10 +1370,11 @@ def survey_phase() -> tuple:
     from uslam_tpu_torch.solvers.banded import measure_band_width, measure_corr_window
 
     t_phase = time.perf_counter()
-    checks = {}
+    checks, preint_ms = {}, {}
     for i, n_poses in enumerate(SURVEY_POSES):
         res = survey_solve(n_poses)
         checks.update(res["checks"])
+        preint_ms[n_poses] = res["preint_ms"]
         if i == 0:
             rel = banded_vs_schur(res["graph"], res["values"], res["cfg"], f"survey {n_poses}")
             checks[f"survey {n_poses}: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
@@ -1076,6 +1397,7 @@ def survey_phase() -> tuple:
     checks[f"long-track survey: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
         rel < BANDED_STEP_RTOL)
     log(f"survey phase: {time.perf_counter() - t_phase!r} s")
+    first["preint_ms"] = preint_ms
     return checks, first
 
 
@@ -1207,8 +1529,10 @@ def klt_phase(seq, cfg) -> dict:
     return {
         "launches": k["launches"],
         "checks": {
-            f"klt: fast_harris {levels} and hamming 1 launches per frame": k["launches"] == {
+            f"klt: fast_harris {levels} and hamming 1 launches per frame": {
+                f: k["launches"][f] for f in ("fast_harris", "hamming")} == {
                 "fast_harris": levels * n_frames, "hamming": n_frames},
+            "klt: preintegrate launched": k["launches"]["preintegrate"] > 0,
             "klt: every frame went through the front end": m["frontend_frames"] == n_frames,
             "klt: errors and ATEs finite, final error < initial":
             all(math.isfinite(e) for e in errors) and m["final_error"] < m["initial_error"],
@@ -1482,8 +1806,15 @@ def bag_round_trip(seq, cfg, tmp: Path) -> dict:
             "ingest (a): bag sensor arrays equal the source": data_equal,
             f"ingest (a): bag stamps within {BAG_STAMP_S} s": stamp_err <= BAG_STAMP_S,
             "ingest (a): features from the decoded bag equal those in memory": features_equal,
-            "ingest (a): launches on the decoded bag equal those in memory": (
-                launches == ref_launches and launches["fast_harris"] > 0),
+            # The first run captures the solve's CUDA graphs (one eager
+            # warm-up call each, whose launches count); the second replays
+            # them. So the front end's launches are held equal, and the
+            # preintegration's only to have run.
+            "ingest (a): front-end launches on the decoded bag equal those in memory": (
+                all(launches[f] == ref_launches[f] for f in ("fast_harris", "hamming"))
+                and launches["fast_harris"] > 0),
+            "ingest (a): preintegrate launched by both runs": (
+                launches["preintegrate"] > 0 and ref_launches["preintegrate"] > 0),
             f"ingest (a): errors within {INGEST_ERROR_RTOL} of the run in memory":
             err_rel <= INGEST_ERROR_RTOL,
             **{f"ingest (a): C++ scanner = Python reader on {k}": v
@@ -1667,8 +1998,9 @@ def cli_klt_run(cfg, tmp: Path) -> dict:
             "cli (c): run exits 0 and prints JSON metrics": rc == 0 and bool(m),
             "cli (c): run solved on the card": solve_device.type == "cuda",
             f"cli (c): run launches fast_harris {cfg.frontend.pyramid_levels} and hamming 1 "
-            f"per frame": launches == {
+            f"per frame": {k: launches[k] for k in ("fast_harris", "hamming")} == {
                 "fast_harris": cfg.frontend.pyramid_levels * n_kf, "hamming": n_kf},
+            "cli (c): run launches preintegrate": launches["preintegrate"] > 0,
             "cli (c): the LM's error falls": m.get("final_error", math.inf) < m.get(
                 "initial_error", -math.inf),
             f"cli (c): ATE <= {ONLINE_ATE_VS_ODOM} x the DVL odometry's":
@@ -1848,11 +2180,13 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
         _, single = optimize_lm(r.graph, values, cam, *sig, sc, cfg.noise.stereo_huber_delta)
         torch.cuda.synchronize()
         single_s, single_it = time.perf_counter() - t0, single.iterations
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         vals, stats = sharded_optimize_lm(graph, values, cam, *sig, mesh, sc,
                                           cfg.noise.stereo_huber_delta)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = {"sharded_lm": dict(kernels.launch_counts)}
         n, m = values.num_poses, values.num_landmarks
         corr_bytes = (6 * n) ** 2 * 8 + 6 * n * 8
         gather_bytes = 3 * m * 8
@@ -1871,7 +2205,7 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
             f"just before it {single_it} in {single_s!r} s ({single_s * 1e3 / max(single_it, 1)!r} "
             f"ms per iteration; phase 7's, the process's first solve, "
             f"{r.metrics['solve_seconds']!r} s); error {stats.final_error!r} (phase 7 "
-            f"{r.stats.final_error!r})")
+            f"{r.stats.final_error!r}); launches {launches['sharded_lm']}")
         log(f"  collectives per LM iteration: all-reduce of H_corr + g_corr {corr_bytes} B "
             f"(6N = {6 * n}, float64), all-gather of the landmark delta {gather_bytes} B, "
             f"broadcast of the error 4 B; one sharded solve_schur at the solution: NCCL "
@@ -1913,7 +2247,6 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
         # -- the front end, frame-parallel ------------------------------------------
         ref = chunk_reference(pairs_np, cfg_fe)
         torch.cuda.synchronize()
-        launches = {}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         kp_l, kp_r, idx, mask = process_stereo_pairs_sharded(
@@ -1940,8 +2273,10 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
             _tree_equal(frames, ref[0]))
         checks[f"multi-device (a): launches per call: pairs fast_harris {levels} hamming 1, "
                f"frames fast_harris {levels} hamming 0"] = (
-            launches["pairs"] == {"fast_harris": levels, "hamming": 1}
-            and launches["frames"] == {"fast_harris": levels, "hamming": 0})
+            launches["pairs"] == {"fast_harris": levels, "hamming": 1, "preintegrate": 0}
+            and launches["frames"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0})
+        checks["multi-device (a): the sharded LM launches preintegrate"] = (
+            launches["sharded_lm"]["preintegrate"] > 0)
         return {"checks": checks, "launches": launches,
                 "frontend": [a.cpu() for a in (*kp_l, *kp_r, idx, mask)]}
     finally:
@@ -2110,6 +2445,33 @@ def only_parallel(device_name: str) -> int:
     return 0
 
 
+def only_compiled(device_name: str) -> int:
+    """``--only-compiled``: the preintegration kernel against its plain
+    version and oracle (phase 3's part), then the 1k solve and its graph
+    checks and per-iteration times (phase 7's part)."""
+    import torch
+
+    from uslam_tpu_torch.config import UslamConfig
+    from uslam_tpu_torch.frontend import kernels
+
+    check_preintegrate(preintegrate_cases(UslamConfig()))
+    kernels.reset_launch_counts()
+    one_k = load_1k()
+    log(f"1k solve: {one_k['result'].metrics['lm_iterations']} LM iterations in "
+        f"{one_k['result'].metrics['solve_seconds']!r} s; launches {dict(kernels.launch_counts)}")
+    log_graphs("the 1k solve")
+    checks = compiled_1k(one_k)["checks"]
+    for name, ok in checks.items():
+        log(f"  check {'PASS' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("checks failed")
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
+    }), flush=True)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "uslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2135,6 +2497,7 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
 
+    from uslam_tpu_torch import cuda_build
     from uslam_tpu_torch.config import UslamConfig
     from uslam_tpu_torch.eval.metrics import ate_rmse
     from uslam_tpu_torch.frontend import kernels
@@ -2147,7 +2510,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    for line in kernels.build_log.splitlines():
+    for line in cuda_build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     log(f"  fast_harris SASS: {sass_loop_summary(kernels.load()._name)}")
@@ -2158,8 +2521,11 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     if sys.argv[1:] == ["--only-parallel"]:
         return only_parallel(device_name)
+    if sys.argv[1:] == ["--only-compiled"]:
+        return only_compiled(device_name)
     if sys.argv[1:]:
-        print(f"unknown arguments {sys.argv[1:]}: none, or --only-parallel", file=sys.stderr)
+        print(f"unknown arguments {sys.argv[1:]}: none, --only-parallel or --only-compiled",
+              file=sys.stderr)
         return 2
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -2259,6 +2625,7 @@ def main() -> int:
         f"kernel {hm_kf_ms!r} ms, bound {hm_kf_bound!r} ms, share {hm_kf_bound / hm_kf_ms!r}")
     del rendered, rendered_levels, textured_levels, pair_levels, kp, real, real_pair, flush_buf
     torch.cuda.empty_cache()
+    pi = check_preintegrate(preintegrate_cases(cfg))
     profile_chunk(seq, cfg)
 
     # ---- 4. the slice, default config: run_sequence on the card ------------
@@ -2293,6 +2660,7 @@ def main() -> int:
     checks = {
         "fast_harris launched once per level per chunk": launches["fast_harris"] == n_chunks * levels,
         "hamming launched once per chunk": launches["hamming"] == n_chunks,
+        "preintegrate launched by the solve": launches["preintegrate"] > 0,
         "every frame went through the front end": m["frontend_frames"] == n_frames,
         "trajectory shape and finite": traj.shape == (n_poses, 3) and bool(np.isfinite(traj).all()),
         "final_error < initial_error": m["final_error"] < m["initial_error"],
@@ -2301,6 +2669,7 @@ def main() -> int:
         and m["ate_rmse_vs_gt"] < ate_odom,
     }
     profile_solve(result, cfg, "slice")
+    log_graphs("phase 4 (slice)")
 
     # ---- 5. the Schur solve held to the dense one on the slice's graph -----
     checks.update(schur_witness(result, cfg))
@@ -2329,35 +2698,47 @@ def main() -> int:
     checks[f"Schur final error <= {SCHUR_VS_DENSE_ERROR} x the dense solver's"] = (
         m["final_error"] <= SCHUR_VS_DENSE_ERROR * md["final_error"])
 
+    log_graphs("phase 5 (Schur vs dense)")
+
     # ---- 6. the offline tail: f64 polish and marginals on the card ---------
     checks.update(offline_tail(result, seq, cfg))
+    log_graphs("phase 6 (polish, marginals)")
 
     # ---- 7. the solver at its published scale: the 1k-pose batch solve -----
     one_k = load_1k()
+    log_graphs("phase 7 (the 1k solve)")
+    c1k = compiled_1k(one_k)
+    checks.update(c1k["checks"])
     checks.update(solve_1k(one_k))
+    log_graphs("phase 7 (graph checks, polish, profile)")
 
     # ---- 8. the online stream: OnlineSlam on the card ----------------------
     online = online_phase(seq, cfg)
     checks.update(online["checks"])
     online_launches = online["launches"]
+    log_graphs("phase 8 (online)")
 
     # ---- 9. the survey sweep on the banded solver and its certificate ------
     survey_checks, survey_2k = survey_phase()
     checks.update(survey_checks)
+    log_graphs("phase 9 (survey)")
 
     # ---- 10. the KLT temporal tracker on the dive's first seconds ----------
     klt = klt_phase(seq, cfg)
     checks.update(klt["checks"])
     klt_launches = klt["launches"]
+    log_graphs("phase 10 (KLT)")
 
     # ---- 11. ROS bags, npz files and the command line ------------------------
     ingest = ingest_phase(seq, cfg)
     checks.update(ingest["checks"])
+    log_graphs("phase 11 (ingest, command line)")
 
     # ---- 12. multi-device: NCCL, landmark-sharded LM, frame-parallel ORB --------
     parallel = parallel_phase(one_k, survey_2k, first_chunk, cfg)
     checks.update(parallel["checks"])
     par = parallel["launches"]
+    log_graphs("phase 12 (multi-device)")
 
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
@@ -2407,6 +2788,34 @@ def main() -> int:
                 "cli_klt_launches": ingest["cli_klt_launches"]["hamming"],
                 "keyframe_ms": hm_kf_ms, "keyframe_bound_ms": hm_kf_bound,
                 "parallel_launches": {k: v["hamming"] for k, v in par.items()},
+            },
+            {
+                "name": "preintegrate", "route": "cuda",
+                "source": "uslam_tpu_torch/csrc/preintegrate.cu",
+                # No Pallas kernel: the lax.scan of the JAX package's
+                # preintegration, jitted with the linearization.
+                "replaces": "uslam_tpu/factors/imu.py:67",
+                "launches": launches["preintegrate"],
+                # Largest difference from the plain version, any case and type.
+                "max_abs_err": pi["max_abs_err"],
+                "max_rel_err_vs_jacfwd": pi["max_rel_err"],
+                # The 1k solve's linearization: 24 x 999 rows, float32.
+                **{k: pi["times"][("1k", "torch.float32")][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "share": pi["times"][("1k", "torch.float32")]["bound_ms"]
+                / pi["times"][("1k", "torch.float32")]["ms"],
+                "library_ms": None,  # no PyTorch call computes the preintegration
+                "online_launches": online_launches["preintegrate"],
+                "online_pass_launches": {p["label"]: p["launches"]["preintegrate"]
+                                         for p in online["passes"]},
+                "klt_launches": klt_launches["preintegrate"],
+                "bag_launches": ingest["bag_launches"]["preintegrate"],
+                "cli_klt_launches": ingest["cli_klt_launches"]["preintegrate"],
+                "parallel_launches": {k: v["preintegrate"] for k, v in par.items()},
+                "keyframe_ms": pi["times"][("online window", "torch.float32")]["ms"],
+                "keyframe_bound_ms": pi["times"][("online window", "torch.float32")]["bound_ms"],
+                # Phase 9: the survey's linearizer layout at each size.
+                "survey_ms": survey_2k["preint_ms"],
             },
         ]
     }

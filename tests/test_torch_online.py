@@ -309,6 +309,7 @@ def test_online_kernel_launches_per_keyframe(cuda):
         online = OnlineSlam(cfg, window=4, solve_during_fill=False, device=cuda, **mode)
         _stream(online, seq)
         online.flush()
-        assert kernels.launch_counts == {"fast_harris": 3 * online.keyframes,
-                                         "hamming": online.keyframes}
+        front_end = {k: kernels.launch_counts[k] for k in ("fast_harris", "hamming")}
+        assert front_end == {"fast_harris": 3 * online.keyframes, "hamming": online.keyframes}
+        assert kernels.launch_counts["preintegrate"] > 0  # the window solves
         assert np.isfinite(online.trajectory()).all()

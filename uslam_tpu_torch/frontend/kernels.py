@@ -13,110 +13,25 @@ nothing else: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel, anything else raises. There is no fallback from a failed build or
 launch; both raise. ``FrontendConfig.use_pallas`` is not read.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use (never at import), into ``uslam_tpu_torch/_build/``, keyed by a
-hash of the sources and flags, so a fresh checkout builds itself.
+The kernels are built, loaded and counted by
+:mod:`uslam_tpu_torch.cuda_build` (one ``nvcc`` library of every
+``csrc/*.cu``, built at first use); ``load``, ``launch_counts`` and
+``reset_launch_counts`` are re-exported here.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 
-from uslam_tpu_torch.frontend.fast import fast_corners, harris_response
-
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+from uslam_tpu_torch.cuda_build import (  # noqa: F401  (re-exported)
+    check_tensor as _check,
+    launch_counts,
+    load,
+    raise_on as _raise_on,
+    reset_launch_counts,
+    stream_of as _stream,
 )
-
-# Kernel launches per wrapper since the last reset_launch_counts(). Only a
-# launch of the CUDA kernel counts; the plain versions never do.
-launch_counts = {"fast_harris": 0, "hamming": 0}
-
-_LOCK = threading.Lock()
-_LIB = None
-build_log = ""
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(f"nvcc not found at {path}; set CUDA_HOME")
-    return str(path)
-
-
-def load() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernel library."""
-    global _LIB, build_log
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        sources = sorted(_CSRC.glob("*.cu"))
-        digest = hashlib.sha256()
-        for src in sources:
-            digest.update(src.name.encode() + src.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        so = _BUILD_DIR / f"libuslam_kernels_{digest.hexdigest()[:16]}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.uslam_fast_harris.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
-        lib.uslam_fast_harris.restype = i32
-        lib.uslam_fast_harris_strip_rows.argtypes = [i32, i32, i32]
-        lib.uslam_fast_harris_strip_rows.restype = i32
-        lib.uslam_hamming.argtypes = [vp, vp, vp, i32, i32, i32, vp]
-        lib.uslam_hamming.restype = i32
-        lib.uslam_cuda_error_string.argtypes = [i32]
-        lib.uslam_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: need a contiguous {ndim}-d {dtype} tensor, got "
-            f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
-        )
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-
-
-def _raise_on(lib, code: int, name: str) -> None:
-    if code != 0:
-        msg = lib.uslam_cuda_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+from uslam_tpu_torch.frontend.fast import fast_corners, harris_response
 
 
 # --------------------------------------------------------------------------

@@ -37,7 +37,9 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # Negation instead of a product with a (1, -1, -1, -1) constant: the
+    # same bits, and no host-to-device copy (which a CUDA graph forbids).
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

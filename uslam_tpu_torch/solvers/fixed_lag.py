@@ -72,6 +72,8 @@ def marginal_information(graph, values: Values, cam, dvl_sigma, stereo_sigma, gr
     would count their information again every step. Frame 0's stereo
     observations are dropped (sparsification); the marginal's mean is the
     window solution."""
+    # The same CUDA graph as the LM's linearizations on the card; its
+    # outputs come back cloned, so nothing the LM returned is overwritten.
     lin = linearize_graph(graph, values, cam, dvl_sigma, stereo_sigma, gravity)
     F = FRAME_DIM
     D = 2 * F + BIAS_DIM                    # [f0 (9) | f1 (9) | bias (6)]

@@ -8,7 +8,16 @@ The JAX package takes ``jax.jacfwd`` at the zero tangent. Here the same
 forward-mode derivative is one ``torch.func.jvp`` over a batch of tangent
 basis vectors: the factor functions broadcast over leading dimensions, so
 the ``dim`` basis directions ride as one extra leading axis and every
-column of the Jacobian comes out of a single pass.
+column of the Jacobian comes out of a single pass. The IMU preintegration
+inside it is a ``torch.autograd.Function`` with its own ``jvp`` (the CUDA
+kernel ``csrc/preintegrate.cu`` on the card).
+
+:func:`linearize_graph` and :func:`graph_error` dispatch on the device of
+the values: on CUDA they replay a CUDA graph cached by shape
+(:mod:`uslam_tpu_torch.solvers.compiled`, the counterpart of the JAX
+package's ``jax.jit``); on the CPU they run their eager bodies,
+:func:`linearize_graph_eager` and :func:`graph_error_eager`, which stay
+callable on CUDA so that the two can be compared.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from uslam_tpu_torch.geometry.camera import StereoCamera
 from uslam_tpu_torch.geometry.se3 import Pose3, pose_local, pose_retract
 from uslam_tpu_torch.graph.builder import GraphArrays
 from uslam_tpu_torch.graph.values import Values
+from uslam_tpu_torch.solvers import compiled
 
 
 class Linearization(NamedTuple):
@@ -77,7 +87,7 @@ def _frame_pairs(values: Values, n_int: int):
     )
 
 
-def linearize_graph(
+def linearize_graph_eager(
     graph: GraphArrays,
     values: Values,
     cam: StereoCamera,
@@ -199,7 +209,7 @@ def linearize_graph(
     )
 
 
-def graph_error(
+def graph_error_eager(
     graph: GraphArrays,
     values: Values,
     cam: StereoCamera,
@@ -223,7 +233,7 @@ def graph_error(
     pose_i, vel_i, pose_j, vel_j = _frame_pairs(values, n_int)
     imu_r = imu_residual(
         pose_i, vel_i, pose_j, vel_j, values.bias, graph.imu.data, gravity,
-        graph.imu.whitener,
+        graph.imu.whitener, differentiable=False,
     )
     e = e + 0.5 * torch.sum((imu_r * graph.imu.mask[:, None]) ** 2)
 
@@ -243,3 +253,42 @@ def graph_error(
         nrm <= huber_delta, 0.5 * nrm**2, huber_delta * (nrm - 0.5 * huber_delta)
     )
     return e + torch.sum(rho * s.mask)
+
+
+def _dispatch(name: str, body, graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta):
+    if values.pose_trans.device.type == "cuda":
+        return compiled.call(
+            name, body, (graph, values, cam), (dvl_sigma, stereo_sigma, gravity, huber_delta)
+        )
+    return body(graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta)
+
+
+def linearize_graph(
+    graph: GraphArrays,
+    values: Values,
+    cam: StereoCamera,
+    dvl_sigma: float,
+    stereo_sigma: float,
+    gravity: float,
+    huber_delta: float | None = None,
+) -> Linearization:
+    """Whitened residuals and Jacobian blocks of every factor family at
+    ``values`` (:func:`linearize_graph_eager`; a replayed CUDA graph on the
+    card)."""
+    return _dispatch("linearize_graph", linearize_graph_eager, graph, values, cam,
+                     dvl_sigma, stereo_sigma, gravity, huber_delta)
+
+
+def graph_error(
+    graph: GraphArrays,
+    values: Values,
+    cam: StereoCamera,
+    dvl_sigma: float,
+    stereo_sigma: float,
+    gravity: float,
+    huber_delta: float | None = None,
+) -> torch.Tensor:
+    """Total error 0.5 ||r||^2, Huber on the stereo terms with a delta
+    (:func:`graph_error_eager`; a replayed CUDA graph on the card)."""
+    return _dispatch("graph_error", graph_error_eager, graph, values, cam,
+                     dvl_sigma, stereo_sigma, gravity, huber_delta)

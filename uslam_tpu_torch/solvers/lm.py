@@ -164,6 +164,8 @@ def optimize_lm(
         return lin
 
     values = initial
+    # On the card lin holds clones of a replayed graph's outputs, so it
+    # outlives the error's replays (another graph) and later linearizations.
     lin = linearize(values)
     error = err_fn(values)
     init_error = error
