@@ -26,17 +26,24 @@ Phases, each of which raises (exit code != 0) on failure:
    the slice, the online window and the 20 Hz clip (also with S cut to 16),
    each with an all-padding interval, in float32 and float64: against its
    plain version and the forward-mode Jacobian (torch.func.jacfwd) of the
-   value-only loop to ``PREINT_RTOL``, and bit for bit against the eager
-   path it replaces (the loop under torch.func.jvp, the linearizer's 24
-   tangent rows per interval); its time at the linearizer's and the
-   error's layouts beside its bound. Then a torch.profiler breakdown of one
-   front-end chunk's device time.
+   value-only loop to ``PREINT_RTOL`` with a random bias per row (the
+   former layout: 24 rows per interval); bit for bit against the eager path it
+   replaces (the loop under torch.func.jvp) in that layout and in the main
+   path's (one row per interval); its value-only variant bit for bit
+   against the loop. Then its time in the main path's layouts (the
+   linearizer's with the Jacobian, the error's value only) beside their
+   bounds (what the intervals' data needs, once), the plain version's
+   time, the chain's floor (one interval alone, measured; phase 2 prints
+   the chain's SASS instructions per step), and in the former 24-row
+   layout. Then a torch.profiler breakdown of one front-end chunk's device
+   time.
 4. slice: ``run_sequence`` with the default ``UslamConfig()`` (Schur +
    velocity elimination) on a rendered 20 s synthetic dive (100 stereo
    keyframes at 1920x1080, 200 landmarks, 200 Hz IMU); checks the launch
    counts of both kernels (fast_harris once per level per chunk, hamming
    once per chunk), the LM's error decrease, and the trajectory error
-   against ground truth and the DVL odometry; then where one LM iteration
+   against ground truth and the DVL odometry; prints the LM iterations and
+   final error beside the former layout's (``SLICE_BEFORE``); then where one LM iteration
    goes (host clock per stage, torch.profiler device time of the solve).
 5. Schur vs dense, on the features phase 4 left in the sequence (no front
    end): at the slice's solution, the Schur step against the dense step
@@ -54,7 +61,9 @@ Phases, each of which raises (exit code != 0) on failure:
    solution: the CUDA-graphed ``linearize_graph`` and ``graph_error`` held
    to their eager bodies bit for bit (float32, and float64 as the polish
    runs them), and each one's host ms per LM iteration, eager and graphed,
-   with one preintegration launch per call.
+   with one preintegration launch per call, of one kernel row per IMU
+   interval; the linearization's IMU block (one preintegration per
+   interval) equal to the former 24-row path bit for bit, in both types.
 8. online: the first ``ONLINE_SECONDS`` of phase 3's dive (uint8 frames)
    streamed message by message through ``OnlineSlam(UslamConfig(),
    window=10, solve_during_fill=False)`` three times: (a) the host
@@ -66,7 +75,8 @@ Phases, each of which raises (exit code != 0) on failure:
    ``ONLINE_DIVERGENCE_M`` of (a); prints per-keyframe host ms (median,
    p90) of the steady keyframes, the timing split, LM iterations, one
    steady keyframe under torch.profiler, and the window's landmarks by
-   observation count; (a)'s last window graphed against eager bit for bit;
+   observation count; (a)'s last window graphed against eager bit for bit,
+   and its IMU block against the 24-row path;
    the CUDA-graph captures of each pass, none after the first steady
    keyframe on (b) and (c).
 9. survey: bench.py's scaling sweep (bench.py:517-628) on the banded
@@ -81,7 +91,8 @@ Phases, each of which raises (exit code != 0) on failure:
    (float64 both) with each one's peak memory, and on a short long-track
    survey (band_w ~ N, chunk window F < 2 band_w) too. At each size the
    per-frame sum of the band assembly (``bands.frame_sum``) must make no
-   host sync and repeat bit-identically.
+   host sync and repeat bit-identically. At each size the preintegration
+   kernel's time in the linearizer's, the error's and the former layouts.
 10. KLT: ``run_sequence`` with ``FrontendConfig(temporal_tracker="klt")`` on
    the first ``ONLINE_SECONDS`` of phase 3's dive (21 keyframes), beside the
    ORB front end on the same frames: launch counts (3 fast_harris and 1
@@ -191,15 +202,36 @@ BORDER = 5
 # under torch.func.jvp) the kernel must be bit-identical: it repeats that
 # path's operations in their order.
 PREINT_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
-# Float operations of one row and one sample, counted from the loop body of
-# csrc/preintegrate.cu (an FMA two, sin, cos and sqrt one each; the branch
-# that real samples take): 118 for the value and 196 for each of the 6 bias
-# tangent columns. The kernel computes the value once per column; the bound
-# counts it once.
-PREINT_OPS_PER_ROW_SAMPLE = 118 + 6 * 196
+# Float operations the preintegration needs (an FMA two; a sqrt, sin, cos,
+# division or comparison one each), counted from the eager path it repeats
+# with its tangent seeds' zeros and unit entries folded: an operation on a
+# tangent that is exactly 0, or a product by +-1, is not counted. So an
+# accelerometer column carries no quaternion tangent (dq = 0 at every
+# step: its rotation tangent is R(q) da alone, 12 operations), a
+# gyroscope column no da, and Exp's tangent is taken for the 3 gyroscope
+# columns alone. (value, the six columns' tangents) per sample:
+# - Exp of a real sample (dt != 0; a - ba and w - bg included), by its
+#   branch: theta^2 >= 1e-8 (23, 46: 15 per gyroscope column and the
+#   2 theta they share) or below (22, 30);
+# - the chain, by the step's place in its interval: the first (from the
+#   identity and zero tangents: 24, 66), the second (v, p and the gyroscope
+#   columns' dv, dp still zero: 95, 495), any later real one (95, 555 =
+#   3 x 149 + 3 x 36: rotate, p/v, the Hamilton product, normalize), and a
+#   padded one after them (dt = 0: v, p and t stay, q e = q exactly; the
+#   normalization alone, 12, 60).
+# A real sample in its steady state needs 719 (PR 8's bound counted 1,294
+# for every sample: 118 + 6 x 196, zeros included); padding trails each
+# interval (the packer's mask).
+PREINT_EXP_OPS = {"large": (23, 46), "small": (22, 30)}
+PREINT_CHAIN_OPS = {"first": (24, 66), "second": (95, 495), "steady": (95, 555),
+                    "padded": (12, 60)}
 # The linearizer's tangent rows per IMU interval (pose_i, vel_i, pose_j,
-# vel_j, bias), each a row of the kernel.
+# vel_j, bias): the former main path launched one kernel row for each,
+# the layout timed here as "before".
 IMU_TANGENT_ROWS = 24
+# The slice's LM iterations and final error on the card with the former
+# layout: the arithmetic is unchanged, so the solve must repeat them.
+SLICE_BEFORE = (83, 0.07104358822107315)
 FP64_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores (data sheet)
 # Phase 8: the online stream's first seconds (5 keyframes per second), the
 # window, and which steady keyframe goes under the profiler.
@@ -444,24 +476,56 @@ def preintegrate_eager(data, bias6):
     return value[0], jt[18:24].permute(1, 2, 0), imu.preintegrate_loop(data, bias6).dt_total
 
 
-def preint_bytes_ops(data, rows: int):
-    """(bytes, float operations) of one launch over ``rows`` rows: the
-    samples read once per interval, the biases, and the outputs (q, v, p,
-    the (10, 6) Jacobian per row, T per interval)."""
+def preint_bytes_ops(data, bias, jacobian: bool = True):
+    """(bytes, float operations) of one launch at ``bias`` ((6,): one row
+    per interval; (..., n, 6): a row per bias row): the samples read once
+    per interval, the biases, and the outputs (q, v, p, with ``jacobian``
+    the (10, 6) Jacobian per row, T per interval); the operations this
+    data needs (PREINT_EXP_OPS, PREINT_CHAIN_OPS)."""
     n, S = data.acc.shape[0], data.acc.shape[1]
     item = data.acc.element_size()
-    n_bytes = (n * S * 7 + rows * 6 + rows * (10 + 60) + n) * item
-    return n_bytes, rows * S * PREINT_OPS_PER_ROW_SAMPLE
+    phi = (data.gyro - bias[..., None, 3:]) * data.dt[..., None]
+    small = (phi * phi).sum(-1) < 1e-8                    # (rows..., n, S)
+    real = (data.dt != 0).expand(small.shape)
+    rows = small[..., 0].numel()
+
+    def ops(kind, table):
+        value, tangent = table[kind]
+        return value + (tangent if jacobian else 0)
+
+    m = real.sum(-1)  # real samples per row
+    n_ops = (ops("large", PREINT_EXP_OPS) * int((real & ~small).sum())
+             + ops("small", PREINT_EXP_OPS) * int((real & small).sum())
+             + int(((m >= 1) * (ops("first", PREINT_CHAIN_OPS)
+                                + (S - m) * ops("padded", PREINT_CHAIN_OPS))
+                    + (m >= 2) * ops("second", PREINT_CHAIN_OPS)
+                    + (m - 2).clamp(min=0) * ops("steady", PREINT_CHAIN_OPS)).sum()))
+    per_row = 10 + (60 if jacobian else 0)
+    n_bytes = (n * S * 7 + bias.numel() + rows * per_row + n) * item
+    return n_bytes, n_ops
+
+
+def _flat(d):
+    import torch
+
+    return torch.cat([d.delta_q, d.delta_v, d.delta_p], -1)
 
 
 def check_preintegrate(cases) -> dict:
-    """The preintegration kernel on the card, in float32 and float64: (a)
-    against its plain version and the oracle (:func:`preintegrate_oracle`)
-    at the linearizer's layout with a random bias per row, to PREINT_RTOL;
-    (b) bit for bit against the eager path it replaces
-    (:func:`preintegrate_eager`) at the linearizer's layout; then its time
-    at that layout and at the error's (one bias for every interval), beside
-    its bound and the plain version's time."""
+    """The preintegration kernel on the card, in float32 and float64:
+    (a) against its plain version and the oracle (:func:`preintegrate_oracle`)
+    in the former layout (24 rows per interval) with a random bias per row, to
+    PREINT_RTOL, padded intervals' Jacobians exactly 0; (b) bit for bit
+    against the eager path it replaces (:func:`preintegrate_eager`), one
+    bias for every row, in that layout and in the main path's (one row per
+    interval); (c) the value-only variant bit for bit against
+    ``preintegrate_loop`` and the full kernel's value. Then its time in the
+    main path's layouts (the linearizer's: one row per interval with the
+    Jacobian; the error's: value only) beside their bounds and the plain
+    version's time, and in the former 24-row layout, on the packer's intervals
+    (without the appended all-padding one); and the chain's floor, measured:
+    one interval alone (one block, its S steps with nothing beside them)
+    beside an empty launch (S = 0)."""
     import numpy as np
     import torch
 
@@ -482,8 +546,7 @@ def check_preintegrate(cases) -> dict:
             dp, jp = imu.preintegrate_plain(data, bias)
             vo, jo, to = preintegrate_oracle(data, bias)
             torch.cuda.synchronize()
-            vk = torch.cat([dk.delta_q, dk.delta_v, dk.delta_p], -1).reshape(-1, 10)
-            vp = torch.cat([dp.delta_q, dp.delta_v, dp.delta_p], -1).reshape(-1, 10)
+            vk, vp = _flat(dk).reshape(-1, 10), _flat(dp).reshape(-1, 10)
             jk, jp = jk.reshape(-1, 10, 6), jp.reshape(-1, 10, 6)
             rel, abs_plain = {}, 0.0
             for name, sl in (("q", slice(0, 4)), ("v", slice(4, 7)), ("p", slice(7, 10))):
@@ -498,36 +561,67 @@ def check_preintegrate(cases) -> dict:
                 (jk.reshape(IMU_TANGENT_ROWS, n, 10, 6)[:, -1] == 0).all())
             worst = max(rel.values())
             tol = PREINT_RTOL[str(dtype)]
-            # (b): one bias for every row, as the LM linearizes.
+            # (b): one bias for every row, as the LM linearizes; the former
+            # 24-row layout and the main path's n rows.
             bias6 = bias[0, 0]
             ve, je, te = preintegrate_eager(data, bias6)
-            d6, j6 = imu.preintegrate_cuda(data, bias6.expand(IMU_TANGENT_ROWS, n, 6))
-            v6 = torch.cat([d6.delta_q, d6.delta_v, d6.delta_p], -1)
-            bitwise = (torch.equal(v6[0], ve) and torch.equal(j6[0], je)
-                       and torch.equal(d6.dt_total, te))
-            log(f"  preintegrate {label} {str(dtype)[6:]} ({IMU_TANGENT_ROWS} x {n} rows, S={S}):"
-                f" relative error vs jacfwd of the loop {worst!r} (tol {tol}; by output "
-                f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }), max abs vs plain "
-                f"{abs_plain!r}; padded interval: Jacobian finite and 0: {pad_ok}; bit-identical "
-                f"to the eager jvp of the loop: {bitwise}")
-            if worst > tol or not pad_ok or not bitwise:
+            d24, j24 = imu.preintegrate_cuda(data, bias6.expand(IMU_TANGENT_ROWS, n, 6))
+            dn, jn = imu.preintegrate_cuda(data, bias6)
+            bitwise = {
+                "24 rows": (torch.equal(_flat(d24)[0], ve) and torch.equal(j24[0], je)
+                            and torch.equal(d24.dt_total, te)),
+                "n rows": (torch.equal(_flat(dn), ve) and torch.equal(jn, je)
+                           and torch.equal(dn.dt_total, te)),
+            }
+            # (c): the error's value-only variant.
+            dv, none = imu.preintegrate_cuda(data, bias6, jacobian=False)
+            loop = imu.preintegrate_loop(data, bias6)
+            value_only = none is None and all(
+                torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(dv, loop, dn))
+            log(f"  preintegrate {label} {str(dtype)[6:]} ({n} intervals, S={S}): relative error "
+                f"vs jacfwd of the loop ({IMU_TANGENT_ROWS} x {n} rows, random bias) {worst!r} "
+                f"(tol {tol}; by output { {k: float(f'{v:.3g}') for k, v in rel.items()} }), max "
+                f"abs vs plain {abs_plain!r}; padded interval: Jacobian finite and 0: {pad_ok}; "
+                f"bit-identical to the eager jvp of the loop: {bitwise}; value-only variant "
+                f"bit-identical to the loop and the full kernel: {value_only}")
+            if worst > tol or not pad_ok or not all(bitwise.values()) or not value_only:
                 raise AssertionError(f"preintegrate disagrees with its oracle on {label} {dtype}")
             out["max_abs_err"] = max(out["max_abs_err"], abs_plain)
             out["max_rel_err"][str(dtype)] = max(out["max_rel_err"].get(str(dtype), 0.0), worst)
 
-            lin_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, bias), KERNEL_REPS)
-            err_bias = bias[0, 0]
-            err_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, err_bias), KERNEL_REPS)
-            plain_ms = cuda_ms(lambda: imu.preintegrate_plain(data, bias), PLAIN_REPS)
+            # Times on the packer's intervals alone (no appended padding).
+            n -= 1
+            data = imu.ImuIntervalData(*(x[:n] for x in data))
+            bias24 = bias[:, :n].contiguous()
             rate = FP32_OPS_PER_S if dtype == torch.float32 else FP64_OPS_PER_S
-            lin_b, lin_by = bound_ms(*preint_bytes_ops(data, IMU_TANGENT_ROWS * n), rate)
-            err_b, err_by = bound_ms(*preint_bytes_ops(data, n), rate)
-            out["times"][(label, str(dtype))] = dict(
-                ms=lin_ms, bound_ms=lin_b, bound_by=lin_by, plain_ms=plain_ms,
-                err_ms=err_ms, err_bound_ms=err_b, err_bound_by=err_by)
-            log(f"    time: linearizer layout {lin_ms!r} ms, bound {lin_b!r} ms ({lin_by}), share "
-                f"{lin_b / lin_ms!r}, plain {plain_ms!r} ms; error layout ({n} rows) {err_ms!r} "
-                f"ms, bound {err_b!r} ms ({err_by}), share {err_b / err_ms!r}")
+            lin_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, bias6), KERNEL_REPS)
+            err_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, bias6, jacobian=False),
+                             KERNEL_REPS)
+            rows24_ms = cuda_ms(lambda: imu.preintegrate_cuda(data, bias24), KERNEL_REPS)
+            plain_ms = cuda_ms(lambda: imu.preintegrate_plain(data, bias6), PLAIN_REPS)
+            lin_b, lin_by = bound_ms(*preint_bytes_ops(data, bias6), rate)
+            err_b, err_by = bound_ms(*preint_bytes_ops(data, bias6, jacobian=False), rate)
+            r24_b, _ = bound_ms(*preint_bytes_ops(data, bias24), rate)
+            t = dict(ms=lin_ms, bound_ms=lin_b, bound_by=lin_by, plain_ms=plain_ms,
+                     err_ms=err_ms, err_bound_ms=err_b, err_bound_by=err_by,
+                     rows24_ms=rows24_ms, rows24_bound_ms=r24_b)
+            # The chain's floor: the first interval alone, and the launch
+            # with no samples.
+            one = imu.ImuIntervalData(*(x[:1] for x in data))
+            empty = imu.ImuIntervalData(*(x[:1, :0] for x in data))
+            t["one_ms"] = cuda_ms(lambda: imu.preintegrate_cuda(one, bias6), KERNEL_REPS)
+            t["err_one_ms"] = cuda_ms(lambda: imu.preintegrate_cuda(one, bias6, jacobian=False),
+                                      KERNEL_REPS)
+            t["empty_ms"] = cuda_ms(lambda: imu.preintegrate_cuda(empty, bias6), KERNEL_REPS)
+            floor = (f"; one interval alone (S={S}) {t['one_ms']!r} ms with the Jacobian, "
+                     f"{t['err_one_ms']!r} ms value only, an empty launch {t['empty_ms']!r} ms: "
+                     f"binds {'the chain' if t['one_ms'] > lin_b else lin_by}")
+            out["times"][(label, str(dtype))] = t
+            log(f"    time: linearizer ({n} rows + Jacobian) {lin_ms!r} ms, bound {lin_b!r} ms "
+                f"({lin_by}), share {lin_b / lin_ms!r}, plain {plain_ms!r} ms; error ({n} rows, "
+                f"value only) {err_ms!r} ms, bound {err_b!r} ms ({err_by}), share "
+                f"{err_b / err_ms!r}; the former layout ({IMU_TANGENT_ROWS} x {n} rows + Jacobian, "
+                f"before) {rows24_ms!r} ms, bound {r24_b!r} ms{floor}")
     return out
 
 
@@ -554,6 +648,65 @@ def compiled_vs_eager(graph, values, cam, sig, huber, label: str) -> dict:
             same}
 
 
+def imu_block_24_rows(graph, values, gravity):
+    """The linearization's IMU block as the former layout took it: ``imu_residual``
+    under ``torch.func.jvp`` with the public ``preintegrate``, one kernel
+    row for each of the 24 tangent rows of every interval; (r, J)."""
+    from uslam_tpu_torch.factors.imu import imu_residual
+    from uslam_tpu_torch.geometry.se3 import pose_retract
+    from uslam_tpu_torch.solvers import linearize as L
+
+    n_int = graph.imu.mask.shape[0]
+    pose_i, vel_i, pose_j, vel_j = L._frame_pairs(values, n_int)
+
+    def f(d):
+        return imu_residual(
+            pose_retract(pose_i, d[..., 0:6]), vel_i + d[..., 6:9],
+            pose_retract(pose_j, d[..., 9:15]), vel_j + d[..., 15:18],
+            values.bias + d[..., 18:24], graph.imu.data, gravity, graph.imu.whitener)
+
+    r, J = L._lin(f, (n_int,), IMU_TANGENT_ROWS, values.pose_trans)
+    return r * graph.imu.mask[:, None], J * graph.imu.mask[:, None, None]
+
+
+def imu_block_check(graph, values, cam, sig, huber, label: str) -> dict:
+    """The eager linearization's IMU block (one preintegration per
+    interval) against :func:`imu_block_24_rows`, bit for bit."""
+    import torch
+
+    from uslam_tpu_torch.solvers import linearize as L
+
+    lin = L.linearize_graph_eager(graph, values, cam, *sig, huber)
+    r, J = imu_block_24_rows(graph, values, sig[2])
+    ours = torch.cat([lin.imu_J_pose_i, lin.imu_J_vel_i, lin.imu_J_pose_j, lin.imu_J_vel_j,
+                      lin.imu_J_bias], -1)
+    same = torch.equal(lin.imu_r, r) and torch.equal(ours, J)
+    dtype = str(values.pose_trans.dtype)[6:]
+    log(f"  IMU block, {label} ({dtype}, {r.shape[0]} intervals): one preintegration per "
+        f"interval = the 24-row path bit for bit: {same}")
+    return {f"IMU block = the 24-row path bit for bit, {label} ({dtype})": same}
+
+
+def kernel_rows(fn) -> list:
+    """(rows, with the Jacobian) of every preintegrate launch while ``fn``
+    runs (eagerly: a replayed graph calls no wrapper)."""
+    from uslam_tpu_torch.factors import imu
+
+    rows, wrapped = [], imu.preintegrate_cuda
+
+    def recording(data, bias, jacobian=True):
+        delta, jac = wrapped(data, bias, jacobian)
+        rows.append((delta.delta_q.numel() // 4, jacobian))
+        return delta, jac
+
+    imu.preintegrate_cuda = recording
+    try:
+        fn()
+    finally:
+        imu.preintegrate_cuda = wrapped
+    return rows
+
+
 def compiled_1k(one_k: dict) -> dict:
     """On the 1k problem at its solution: the graphed linearization and
     error held to their eager bodies (float32, and float64 as the polish
@@ -573,10 +726,18 @@ def compiled_1k(one_k: dict) -> dict:
     cam = StereoCamera.from_config(cfg.camera, device="cuda")
     sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
     huber = cfg.noise.stereo_huber_delta
+    g64, v64, cam64 = (cast_tree(x, torch.float64, "cuda") for x in (g, v, cam))
     checks = compiled_vs_eager(g, v, cam, sig, huber, "1k")
-    checks.update(compiled_vs_eager(
-        cast_tree(g, torch.float64, "cuda"), cast_tree(v, torch.float64, "cuda"),
-        cast_tree(cam, torch.float64, "cuda"), sig, None, "1k"))
+    checks.update(compiled_vs_eager(g64, v64, cam64, sig, None, "1k"))
+    checks.update(imu_block_check(g, v, cam, sig, huber, "1k"))
+    checks.update(imu_block_check(g64, v64, cam64, sig, None, "1k"))
+    n_int = g.imu.mask.shape[0]
+    rows = {"linearize": kernel_rows(lambda: L.linearize_graph_eager(g, v, cam, *sig, huber)),
+            "graph_error": kernel_rows(lambda: L.graph_error_eager(g, v, cam, *sig, huber))}
+    log(f"  preintegrate launches of one eager call, (kernel rows, with the Jacobian): {rows} "
+        f"for {n_int} IMU intervals (formerly {IMU_TANGENT_ROWS * n_int} rows with the Jacobian)")
+    checks["1k: preintegrate launches one kernel row per IMU interval"] = rows == {
+        "linearize": [(n_int, True)], "graph_error": [(n_int, False)]}
     t = {}
     for name, fn in (("linearize eager", L.linearize_graph_eager),
                      ("linearize graphed", L.linearize_graph),
@@ -598,7 +759,7 @@ def compiled_1k(one_k: dict) -> dict:
         f"preintegrate launches per linearization {per_lin}, per error {per_err}")
     checks["1k: one preintegrate launch per graphed linearization and per error"] = (
         per_lin == 1 and per_err == 1)
-    return {"checks": checks, "ms": t}
+    return {"checks": checks, "ms": t, "rows": rows}
 
 
 def log_graphs(label: str) -> dict:
@@ -612,34 +773,90 @@ def log_graphs(label: str) -> dict:
     return out
 
 
-def sass_loop_summary(lib_path: str, kernel: str = "fast_harris_kernel") -> str:
-    """Static instruction count of ``kernel``'s longest loop in the built
+_SASS = {}
+
+
+def _sass_code(lib_path: str, kernel: str):
+    """[(offset, instruction)] of the function whose (mangled) name holds
+    ``kernel`` in the built library's SASS (cuobjdump -sass), or None
+    without cuobjdump."""
+    import re
+
+    if lib_path not in _SASS:
+        cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+        if not cuobjdump.exists():
+            return None
+        _SASS[lib_path] = subprocess.run([str(cuobjdump), "-sass", lib_path],
+                                         capture_output=True, text=True, check=True,
+                                         timeout=120).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", _SASS[lib_path])
+                if kernel in f.split("\n", 1)[0])
+    return [(int(m.group(1), 16), m.group(2).strip())
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+
+def _backward_branches(code):
+    """(target, offset) of every backward branch: the loops."""
+    import re
+
+    return [(int(m.group(1), 16), off) for off, ins in code
+            if (m := re.search(r"BRA\s.*?0x([0-9a-f]+)", ins)) and int(m.group(1), 16) < off]
+
+
+def sass_loop_summary(lib_path: str, kernel: str = "fast_harris_kernel",
+                      step_marker: str = "") -> str:
+    """Static instruction count of a loop of ``kernel`` in the built
     library (cuobjdump -sass), by opcode class: what the kernel issues per
-    iteration, to hold against the card's issue rate."""
+    iteration, to hold against the card's issue rate. The longest loop; or,
+    with ``step_marker``, the innermost loop holding it most often and with
+    the fewest calls, per occurrence (the preintegration's chain: one
+    MUFU.RSQ, the norm's square root, per step; the out-of-line rerun's
+    loop calls the intrinsics' slow paths)."""
     import re
     from collections import Counter
 
-    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
-    if not cuobjdump.exists():
+    code = _sass_code(lib_path, kernel)
+    if code is None:
         return "not measured (no cuobjdump)"
-    sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    body = next(f for f in re.split(r"\n\s*Function : ", sass) if kernel in f.split("\n", 1)[0])
-    code = [(int(m.group(1), 16), m.group(2).strip())
-            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-    loops = [(int(m.group(1), 16), off) for off, ins in code
-             if (m := re.search(r"BRA\s.*?0x([0-9a-f]+)", ins)) and int(m.group(1), 16) < off]
-    lo, hi = max(loops, key=lambda t: t[1] - t[0])
+    loops = _backward_branches(code)
+
+    def count(lo_hi, what):
+        return sum(what in ins for off, ins in code if lo_hi[0] <= off <= lo_hi[1])
+
+    steps = 1
+    if step_marker:
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo < a <= b < hi for a, b in loops if (a, b) != (lo, hi))]
+        lo, hi = max(inner, key=lambda t: (count(t, step_marker), -count(t, "CALL")))
+        steps = max(count((lo, hi), step_marker), 1)
+    else:
+        lo, hi = max(loops, key=lambda t: t[1] - t[0])
     ops = [re.sub(r"^@!?U?P[T0-9]\s+", "", ins).split()[0] for off, ins in code if lo <= off <= hi]
     classes = Counter(
         "fp32" if op.startswith(("FADD", "FMUL", "FFMA")) else
-        "compare" if op.startswith("FSETP") else
+        "fp64" if op.startswith(("DADD", "DMUL", "DFMA")) else
+        "mufu" if op.startswith("MUFU") else
+        "compare" if op.startswith(("FSETP", "DSETP")) else
         "move" if op.startswith(("MOV", "IMAD.MOV")) else
         "shared" if op.startswith(("LDS", "STS")) else
         "global" if op.startswith(("LDG", "STG")) else "integer/control"
         for op in ops
     )
+    if step_marker:
+        return (f"{len(ops)} instructions in the loop body, {steps} step(s): "
+                f"{len(ops) / steps!r} per step; {dict(classes)}")
     return f"{len(ops)} instructions in the loop body: {dict(classes)}"
+
+
+def preintegrate_sass(lib_path: str) -> None:
+    """Prints the preintegration chain's instructions per step for the
+    kernel's four instantiations (float32 / float64, with the Jacobian /
+    value only)."""
+    for key, mangled in (("float32", "If"), ("float64", "Id")):
+        for variant, flag in (("with the Jacobian", "Lb1E"), ("value only", "Lb0E")):
+            summary = sass_loop_summary(lib_path, f"preintegrate_kernel{mangled}{flag}",
+                                        step_marker="MUFU.RSQ")
+            log(f"  preintegrate SASS, {key} {variant}, the chain: {summary}")
 
 
 def profile_chunk(seq, cfg, top: int = 8) -> None:
@@ -1104,6 +1321,10 @@ def online_phase(seq, cfg) -> dict:
         g, vals, StereoCamera.from_config(cfg.camera, device="cuda"),
         (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity),
         cfg.noise.stereo_huber_delta, "(a)'s last online window")
+    window_checks.update(imu_block_check(
+        g, vals, StereoCamera.from_config(cfg.camera, device="cuda"),
+        (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity),
+        cfg.noise.stereo_huber_delta, "(a)'s last online window"))
     per_lm = np.bincount(g.stereo.lm_obs_mask.sum(1).long().cpu().numpy())
     log(f"  (a)'s last window: landmarks by observation count "
         f"{dict((k, int(c)) for k, c in enumerate(per_lm) if k and c)}")
@@ -1304,12 +1525,17 @@ def survey_solve(n_poses: int) -> dict:
         corr_window=cw, jitter=scfg.cholesky_jitter, refine_iters=scfg.banded_refine_iters,
         diag_damping=True))
     del lin
-    # The preintegration kernel at the survey's linearizer layout (the
-    # primal recomputed for each of the 24 tangent rows of an interval).
-    preint_bias = r.values.bias + torch.zeros(
-        (IMU_TANGENT_ROWS, n - 1, 6), dtype=r.values.bias.dtype, device="cuda")
-    preint_ms = cuda_ms(lambda: preintegrate_cuda(graph.imu.data, preint_bias), KERNEL_REPS)
-    preint_bound, preint_by = bound_ms(*preint_bytes_ops(graph.imu.data, preint_bias.numel() // 6))
+    # The preintegration kernel at the survey's layouts: the linearizer's
+    # (one row per interval, with the Jacobian), the error's (value only),
+    # and the former one (24 rows per interval).
+    data, b6 = graph.imu.data, r.values.bias
+    n_int = data.acc.shape[0]
+    preint_ms = cuda_ms(lambda: preintegrate_cuda(data, b6), KERNEL_REPS)
+    preint_err_ms = cuda_ms(lambda: preintegrate_cuda(data, b6, jacobian=False), KERNEL_REPS)
+    b24 = b6 + torch.zeros((IMU_TANGENT_ROWS, n_int, 6), dtype=b6.dtype, device="cuda")
+    preint24_ms = cuda_ms(lambda: preintegrate_cuda(data, b24), KERNEL_REPS)
+    preint_bound, preint_by = bound_ms(*preint_bytes_ops(data, b6))
+    err_bound, _ = bound_ms(*preint_bytes_ops(data, b6, jacobian=False))
     t0 = time.perf_counter()
     vals_pol, info = polish_f64(graph, r.values, cam, *sig, scfg,
                                 max_iters=SURVEY_POLISH_ITERS, device="cuda")
@@ -1325,9 +1551,10 @@ def survey_solve(n_poses: int) -> dict:
     log(f"  LM: {m['lm_iterations']} iterations, converged={m['converged']}, error "
         f"{m['initial_error']!r} -> {m['final_error']!r}; solve {m['solve_seconds']!r} s; "
         f"per iteration at the solution (host ms, median of 3): linearize {t_lin!r}, banded "
-        f"solve {t_solve!r}; preintegrate kernel ({preint_bias.numel() // 6} rows of "
-        f"{graph.imu.data.acc.shape[1]} samples, float32) {preint_ms!r} ms, bound "
-        f"{preint_bound!r} ms ({preint_by}), share {preint_bound / preint_ms!r}")
+        f"solve {t_solve!r}; preintegrate kernel (float32, {data.acc.shape[1]} samples per "
+        f"interval): {n_int} rows + Jacobian {preint_ms!r} ms, bound {preint_bound!r} ms "
+        f"({preint_by}), share {preint_bound / preint_ms!r}; value only {preint_err_ms!r} ms, "
+        f"bound {err_bound!r} ms; formerly {IMU_TANGENT_ROWS * n_int} rows {preint24_ms!r} ms")
     log(f"  peak device memory during the solve {peak_mib!r} MiB (graph and values before it: "
         f"{base_mib!r} MiB)")
     log(f"  ATE vs ground truth (observability-limited): initial {ate_init!r} -> final "
@@ -1343,7 +1570,7 @@ def survey_solve(n_poses: int) -> dict:
             "(observability-limited)")
     out = {
         "n": n, "graph": graph, "values": r.values, "cfg": cfg, "cost": cost,
-        "preint_ms": preint_ms,
+        "preint_ms": preint_ms, "preint_err_ms": preint_err_ms, "preint24_ms": preint24_ms,
         "checks": {
             **frame_sum_check(graph.stereo, n, f"survey {n_poses}"),
             f"survey {n_poses}: cost_vs_f64_opt <= {COST_VS_F64_OPT}": cost <= COST_VS_F64_OPT,
@@ -1374,7 +1601,7 @@ def survey_phase() -> tuple:
     for i, n_poses in enumerate(SURVEY_POSES):
         res = survey_solve(n_poses)
         checks.update(res["checks"])
-        preint_ms[n_poses] = res["preint_ms"]
+        preint_ms[n_poses] = {k: res[k] for k in ("preint_ms", "preint_err_ms", "preint24_ms")}
         if i == 0:
             rel = banded_vs_schur(res["graph"], res["values"], res["cfg"], f"survey {n_poses}")
             checks[f"survey {n_poses}: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
@@ -2511,9 +2738,10 @@ def main() -> int:
     kernels.load()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     log(f"  fast_harris SASS: {sass_loop_summary(kernels.load()._name)}")
+    preintegrate_sass(kernels.load()._name)
     from uslam_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -2653,6 +2881,9 @@ def main() -> int:
         f"observation count {dict((k, int(c)) for k, c in enumerate(obs_per_lm) if k and c)}")
     log(f"  pack: {m['pack_seconds']!r} s; solve: {m['solve_seconds']!r} s, "
         f"{m['lm_iterations']} LM iterations, converged={m['converged']}")
+    log(f"  LM iterations and final error {(m['lm_iterations'], m['final_error'])!r} beside the "
+        f"former layout's {SLICE_BEFORE!r}: equal "
+        f"{(m['lm_iterations'], m['final_error']) == SLICE_BEFORE}")
     log(f"  error {m['initial_error']!r} -> {m['final_error']!r}")
     log(f"  ATE vs ground truth {m['ate_rmse_vs_gt']!r} m; DVL odometry {ate_odom!r} m")
     log(f"  run_sequence wall {wall!r} s")
@@ -2799,12 +3030,26 @@ def main() -> int:
                 # Largest difference from the plain version, any case and type.
                 "max_abs_err": pi["max_abs_err"],
                 "max_rel_err_vs_jacfwd": pi["max_rel_err"],
-                # The 1k solve's linearization: 24 x 999 rows, float32.
+                # The 1k solve's linearization: one row per interval (999)
+                # with the Jacobian, float32; its bound counts what the
+                # intervals need once.
                 **{k: pi["times"][("1k", "torch.float32")][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                 "share": pi["times"][("1k", "torch.float32")]["bound_ms"]
                 / pi["times"][("1k", "torch.float32")]["ms"],
                 "library_ms": None,  # no PyTorch call computes the preintegration
+                # The chain's floor, measured at 1k: the first interval
+                # alone (S = 64) with the Jacobian, and an empty launch.
+                "one_interval_ms": pi["times"][("1k", "torch.float32")]["one_ms"],
+                "empty_launch_ms": pi["times"][("1k", "torch.float32")]["empty_ms"],
+                # The error's layout (value only), float64, and the former layout
+                # (24 rows per interval, the "before"), at 1k.
+                "error_ms": pi["times"][("1k", "torch.float32")]["err_ms"],
+                "error_bound_ms": pi["times"][("1k", "torch.float32")]["err_bound_ms"],
+                "f64_ms": pi["times"][("1k", "torch.float64")]["ms"],
+                "rows24_ms": pi["times"][("1k", "torch.float32")]["rows24_ms"],
+                # Kernel rows per launch of one eager 1k linearization / error.
+                "rows_per_launch": c1k["rows"],
                 "online_launches": online_launches["preintegrate"],
                 "online_pass_launches": {p["label"]: p["launches"]["preintegrate"]
                                          for p in online["passes"]},
@@ -2814,7 +3059,7 @@ def main() -> int:
                 "parallel_launches": {k: v["preintegrate"] for k, v in par.items()},
                 "keyframe_ms": pi["times"][("online window", "torch.float32")]["ms"],
                 "keyframe_bound_ms": pi["times"][("online window", "torch.float32")]["bound_ms"],
-                # Phase 9: the survey's linearizer layout at each size.
+                # Phase 9: the survey's layouts at each size.
                 "survey_ms": survey_2k["preint_ms"],
             },
         ]

@@ -12,6 +12,12 @@ recursion compounds that reordering.
 
 The linearization through the ``torch.autograd.Function`` is held to the
 JAX package's by tests/test_torch_backend.py::test_linearization_matches_jax_f64.
+Its IMU block, which preintegrates once per interval and reaches the 24
+tangent rows through the bias Jacobian, is held here to the 24-row path
+it replaces (``imu_residual`` under ``torch.func.jvp``, one
+preintegration per tangent row) bit for bit, and to the JAX package's
+``jax.jacfwd`` linearization of the IMU factor on the same numpy inputs,
+at the tolerances above, relative to each block's largest entry.
 
 On the CPU the plain version is also bit-identical to that JAX-free
 oracle, ``preintegrate_loop`` under ``torch.func.jvp``: it writes out the
@@ -19,8 +25,10 @@ same operations in the same order.
 
 Marked ``cuda`` (skipped without a GPU): the kernel against the plain
 version and, bit for bit, against the loop under ``torch.func.jvp`` (the
-eager path it replaces); the graphed linearize_graph / graph_error against
-their eager bodies (chip_smoke.py does both at the main path's shapes).
+eager path it replaces); its value-only variant against the full kernel's
+value and the loop bit for bit; the graphed linearize_graph / graph_error
+against their eager bodies (chip_smoke.py does all at the main path's
+shapes).
 """
 
 import jax
@@ -29,11 +37,22 @@ import numpy as np
 import pytest
 import torch
 
+from uslam_tpu.config import UslamConfig as JaxConfig
 from uslam_tpu.factors.imu import ImuIntervalData as JaxImuData
+from uslam_tpu.factors.imu import imu_residual as jax_imu_residual
 from uslam_tpu.factors.imu import preintegrate as jax_preintegrate
+from uslam_tpu.geometry.se3 import Pose3 as JaxPose3
+from uslam_tpu.geometry.se3 import pose_retract as jax_retract
+from uslam_tpu.graph.packing import pack_sequence as jax_pack
+from uslam_tpu.io.synthetic import SyntheticSpec, generate_synthetic_sequence
 from uslam_tpu_torch import cuda_build
+from uslam_tpu_torch.device import cast_tree
 from uslam_tpu_torch.factors import imu
+from uslam_tpu_torch.geometry.camera import StereoCamera
+from uslam_tpu_torch.geometry.se3 import pose_retract
+from uslam_tpu_torch.interop import config_to_port, to_port
 from uslam_tpu_torch.solvers import compiled
+from uslam_tpu_torch.solvers import linearize as L
 
 RTOL = {"float64": 1e-12, "float32": 1e-5}
 
@@ -127,6 +146,19 @@ def test_function_jvp_is_the_bias_jacobian():
     assert torch.equal(imu.preintegrate_value(data, bias).delta_p, loop.delta_p)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_value_only_path_is_the_loop(dtype):
+    """preintegrate_value (the error's path) on the CPU: the loop, bit for
+    bit, with one bias per interval and with one for all."""
+    acc, gyro, dt = _samples(5, 64, seed=8)
+    tdt = getattr(torch, dtype)
+    data = imu.ImuIntervalData(*(torch.tensor(x, dtype=tdt) for x in (acc, gyro, dt)))
+    bias = torch.tensor(np.random.default_rng(9).normal(scale=0.02, size=(5, 6)), dtype=tdt)
+    for b in (bias, bias[2]):
+        got, ref = imu.preintegrate_value(data, b), imu.preintegrate_loop(data, b)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
 def test_cpu_tensors_never_reach_the_kernel():
     acc, gyro, dt = _samples(3, 16, seed=4)
     data = imu.ImuIntervalData(*(torch.tensor(x) for x in (acc, gyro, dt)))
@@ -155,6 +187,109 @@ def test_graph_cache_key_follows_structure_shapes_and_constants():
     assert rebuilt[0].delta_v is leaves[1] and rebuilt[1][0] is leaves[3]
     with pytest.raises(ValueError):
         compiled.call("f", lambda x: x, (leaves[0],), ())
+
+
+# ---- the linearizer's IMU block ----------------------------------------------
+IMU_FIELDS = ("imu_r", "imu_J_pose_i", "imu_J_vel_i", "imu_J_pose_j", "imu_J_vel_j", "imu_J_bias")
+SIGMAS = (0.1, 10.0)  # dvl_sigma, stereo_sigma
+
+
+@pytest.fixture(scope="module")
+def imu_problem():
+    """The JAX package's packing of a 2 s synthetic dive (9 IMU intervals
+    of 64 samples), as numpy, with the velocities and the bias perturbed so
+    that every IMU block is nonzero."""
+    cfg = JaxConfig()
+    seq = generate_synthetic_sequence(SyntheticSpec(duration=2.0, odom_drift_rate=0.05))
+    graph, values = jax.device_get(jax_pack(seq, cfg)[:2])
+    rng = np.random.default_rng(7)
+    values = values._replace(
+        vel=values.vel + rng.normal(0, 0.1, values.vel.shape),
+        bias=values.bias + rng.normal(scale=[0.05] * 3 + [0.005] * 3),
+    )
+    return cfg, graph, values
+
+
+def _port(problem, dtype):
+    cfg, graph, values = problem
+    tdt = getattr(torch, dtype)
+    g = cast_tree(to_port(graph, "cpu"), tdt, "cpu")
+    v = cast_tree(to_port(values, "cpu"), tdt, "cpu")
+    cam = StereoCamera.from_config(config_to_port(cfg.camera), device="cpu", dtype=tdt)
+    return g, v, cam
+
+
+def _imu_block_24_rows(g, v, gravity):
+    """The IMU block as the linearizer took it before it preintegrated once
+    per interval: imu_residual under torch.func.jvp, the public
+    preintegrate run for each of the 24 tangent rows of every interval."""
+    n_int = g.imu.mask.shape[0]
+    pose_i, vel_i, pose_j, vel_j = L._frame_pairs(v, n_int)
+
+    def f(d):
+        return imu.imu_residual(
+            pose_retract(pose_i, d[..., 0:6]), vel_i + d[..., 6:9],
+            pose_retract(pose_j, d[..., 9:15]), vel_j + d[..., 15:18],
+            v.bias + d[..., 18:24], g.imu.data, gravity, g.imu.whitener)
+
+    r, J = L._lin(f, (n_int,), 24, v.pose_trans)
+    J = J * g.imu.mask[:, None, None]
+    return (r * g.imu.mask[:, None], J[..., 0:6], J[..., 6:9], J[..., 9:15], J[..., 15:18],
+            J[..., 18:24])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_imu_block_equals_the_24_row_path(imu_problem, dtype):
+    g, v, cam = _port(imu_problem, dtype)
+    gravity = imu_problem[0].imu.gravity
+    lin = L.linearize_graph_eager(g, v, cam, *SIGMAS, gravity)
+    ref = _imu_block_24_rows(g, v, gravity)
+    for f, b in zip(IMU_FIELDS, ref):
+        assert torch.equal(getattr(lin, f), b), f
+    assert lin.imu_J_bias.abs().max() > 0
+
+
+def _jax_imu_block(graph, values, gravity):
+    """The JAX package's IMU block (uslam_tpu/solvers/linearize.py:133-174):
+    jax.jacfwd of its imu_residual at the zero tangent, vmapped over the
+    intervals, masked."""
+    n_int = graph.imu.mask.shape[0]
+    ki = np.minimum(np.arange(n_int), values.pose_quat.shape[0] - 1)
+    kj = np.minimum(np.arange(n_int) + 1, values.pose_quat.shape[0] - 1)
+
+    def lin(qi, ti, vi, qj, tj, vj, data, whitener, mask):
+        def fn(d):
+            return jax_imu_residual(
+                jax_retract(JaxPose3(qi, ti), d[0:6]), vi + d[6:9],
+                jax_retract(JaxPose3(qj, tj), d[9:15]), vj + d[15:18],
+                values.bias + d[18:24], data, gravity, whitener)
+
+        zero = jnp.zeros(24, values.bias.dtype)
+        return fn(zero) * mask, jax.jacfwd(fn)(zero) * mask
+
+    r, J = jax.device_get(jax.jit(jax.vmap(lin))(
+        values.pose_quat[ki], values.pose_trans[ki], values.vel[ki], values.pose_quat[kj],
+        values.pose_trans[kj], values.vel[kj], JaxImuData(*graph.imu.data), graph.imu.whitener,
+        graph.imu.mask))
+    return r, J[..., 0:6], J[..., 6:9], J[..., 9:15], J[..., 15:18], J[..., 18:24]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_imu_block_matches_jax(imu_problem, dtype):
+    """The IMU block against the JAX package's linearization of the IMU
+    factor on the same numpy inputs, to RTOL."""
+    cfg, graph, values = imu_problem
+    ndt = np.dtype(dtype)
+    graph, values = (jax.tree.map(
+        lambda a: a.astype(ndt) if np.issubdtype(a.dtype, np.floating) else a, t)
+        for t in (graph, values))
+    with jax.enable_x64(dtype == "float64"):
+        ref = _jax_imu_block(graph, values, cfg.imu.gravity)
+    lin = L.linearize_graph_eager(*_port(imu_problem, dtype), *SIGMAS, cfg.imu.gravity)
+    for f, a in zip(IMU_FIELDS, ref):
+        b = getattr(lin, f).numpy()
+        assert a.shape == b.shape, f
+        assert _rel(b, a) <= RTOL[dtype], f
 
 
 @pytest.fixture
@@ -195,6 +330,31 @@ def test_preintegrate_kernel_matches_plain(cuda, dtype):
     d6, j6 = imu.preintegrate_cuda(data, b6)
     assert torch.equal(torch.cat([d6.delta_q, d6.delta_v, d6.delta_p], -1), value[0])
     assert torch.equal(j6, jt.movedim(0, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_value_only_kernel_matches_full_kernel_and_loop(cuda, dtype):
+    """The error's variant (no Jacobian): the full kernel's value and the
+    loop's bit for bit, the plain version's to RTOL; per-row and shared bias."""
+    acc, gyro, dt = _samples(40, 64, seed=10)
+    tdt = getattr(torch, dtype)
+    data = imu.ImuIntervalData(*(torch.tensor(x, dtype=tdt, device=cuda)
+                                 for x in (acc, gyro, dt)))
+    bias = torch.tensor(np.random.default_rng(11).normal(scale=0.02, size=(40, 6)),
+                        dtype=tdt, device=cuda)
+    for b in (bias, bias[3]):
+        before = cuda_build.launch_counts["preintegrate"]
+        got, none = imu.preintegrate_cuda(data, b, jacobian=False)
+        assert none is None and cuda_build.launch_counts["preintegrate"] == before + 1
+        full = imu.preintegrate_cuda(data, b)[0]
+        loop = imu.preintegrate_loop(data, b)
+        plain = imu.preintegrate_plain(data, b)[0]
+        torch.cuda.synchronize()
+        for x, y, z, w in zip(got, full, loop, plain):
+            assert torch.equal(x, y) and torch.equal(x, z)
+            assert float((x - w).abs().max() / w.abs().max()) <= RTOL[dtype]
+        assert all(torch.equal(x, y) for x, y in zip(imu.preintegrate_value(data, b), got))
 
 
 @pytest.mark.cuda

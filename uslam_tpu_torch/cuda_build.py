@@ -7,6 +7,8 @@ wrapper             CUDA source                 replaces (JAX package)
 ``hamming``         ``csrc/hamming.cu``         Pallas ``_hamming_kernel``
 ``preintegrate``    ``csrc/preintegrate.cu``    the ``lax.scan`` of
                                                 ``factors/imu.py::preintegrate``
+                                                under ``jax.jacfwd`` (one row
+                                                per IMU interval)
 ==================  ==========================  ==============================
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into one
@@ -66,7 +68,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "uslam_fast_harris": [vp, vp, vp, i32, i32, i32, f32, f32, vp],
         "uslam_fast_harris_strip_rows": [i32, i32, i32],
         "uslam_hamming": [vp, vp, vp, i32, i32, i32, vp],
-        "uslam_preintegrate": [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp],
+        "uslam_preintegrate": [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -19,6 +19,12 @@ device of the samples and on nothing else:
   plain PyTorch carrying the six bias tangents beside the value;
 - anything else raises.
 
+The linearizer evaluates every interval at one bias, so it preintegrates
+once per interval (:func:`preintegrate_with_jacobian`) and hands the
+deltas to its tangent rows itself (uslam_tpu_torch/solvers/linearize.py).
+The error needs no Jacobian: :func:`preintegrate_value` launches the
+kernel's value-only variant.
+
 :func:`preintegrate_loop` is the scan written as a Python loop over the
 samples, value only; differentiated by ``torch.func.jacfwd`` it is the
 oracle both are held to (tests/test_torch_preintegrate.py, chip_smoke.py).
@@ -225,9 +231,11 @@ def preintegrate_plain(data: ImuIntervalData, bias: torch.Tensor):
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
-def preintegrate_cuda(data: ImuIntervalData, bias: torch.Tensor):
+def preintegrate_cuda(data: ImuIntervalData, bias: torch.Tensor, jacobian: bool = True):
     """The kernel (csrc/preintegrate.cu): the same function as
     :func:`preintegrate_plain`, for CUDA tensors of float32 or float64.
+    With ``jacobian=False`` the value-only variant runs and the Jacobian
+    returned is None.
 
     The samples' leading shape must be a suffix of the broadcast leading
     shape (the linearizer's tangent rows over the intervals, or one bias
@@ -263,11 +271,15 @@ def preintegrate_cuda(data: ImuIntervalData, bias: torch.Tensor):
     acc, gyro = (x.contiguous().reshape(n_data, S, 3) for x in (acc, gyro))
     dts = dts.contiguous().reshape(n_data, S)
     rows = math.prod(lead)
-    b = bias.expand(lead + (BIAS_DIM,)).contiguous().reshape(rows, BIAS_DIM)
+    # One bias for every row is read in place (row r reads bias row r % 1).
+    if bias.numel() == BIAS_DIM:
+        b = bias.contiguous().reshape(1, BIAS_DIM)
+    else:
+        b = bias.expand(lead + (BIAS_DIM,)).contiguous().reshape(rows, BIAS_DIM)
     q = acc.new_empty((rows, 4))
     v = acc.new_empty((rows, 3))
     p = acc.new_empty((rows, 3))
-    jac = acc.new_empty((rows, JAC_ROWS, BIAS_DIM))
+    jac = acc.new_empty((rows, JAC_ROWS, BIAS_DIM)) if jacobian else None
     t = acc.new_empty((n_data,))
     if rows > 0:
         if rows >= 2**31 or n_data * S >= 2**31 // 3:
@@ -276,7 +288,7 @@ def preintegrate_cuda(data: ImuIntervalData, bias: torch.Tensor):
         code = lib.uslam_preintegrate(
             _DTYPE_CODE[acc.dtype], acc.data_ptr(), gyro.data_ptr(), dts.data_ptr(),
             b.data_ptr(), q.data_ptr(), v.data_ptr(), p.data_ptr(), t.data_ptr(),
-            jac.data_ptr(), rows, n_data, S, stream_of(acc),
+            jac.data_ptr() if jacobian else None, rows, n_data, b.shape[0], S, stream_of(acc),
         )
         raise_on(lib, code, "preintegrate")
         launch_counts["preintegrate"] += 1
@@ -284,7 +296,7 @@ def preintegrate_cuda(data: ImuIntervalData, bias: torch.Tensor):
         q.reshape(lead + (4,)), v.reshape(lead + (3,)), p.reshape(lead + (3,)),
         t.reshape(data_lead),
     )
-    return delta, jac.reshape(lead + (JAC_ROWS, BIAS_DIM))
+    return delta, (jac.reshape(lead + (JAC_ROWS, BIAS_DIM)) if jacobian else None)
 
 
 def preintegrate_with_jacobian(data: ImuIntervalData, bias: torch.Tensor):
@@ -299,11 +311,11 @@ def preintegrate_with_jacobian(data: ImuIntervalData, bias: torch.Tensor):
 
 
 def preintegrate_value(data: ImuIntervalData, bias: torch.Tensor) -> PreintegratedDelta:
-    """The deltas alone, not differentiable: the kernel for CUDA tensors
-    (its Jacobian dropped), :func:`preintegrate_loop` for CPU tensors."""
+    """The deltas alone, not differentiable: the kernel's value-only
+    variant for CUDA tensors, :func:`preintegrate_loop` for CPU tensors."""
     kind = data.acc.device.type
     if kind == "cuda":
-        return preintegrate_cuda(data, bias)[0]
+        return preintegrate_cuda(data, bias, jacobian=False)[0]
     if kind == "cpu":
         return preintegrate_loop(data, bias)
     raise ValueError(f"preintegrate: unsupported device {data.acc.device}")
@@ -348,7 +360,6 @@ def imu_residual(
     data: ImuIntervalData,
     gravity: float,
     whitener: torch.Tensor,
-    differentiable: bool = True,
 ) -> torch.Tensor:
     """9-dim whitened ImuFactor residual [r_dR, r_dv, r_dp] (GTSAM):
 
@@ -356,10 +367,25 @@ def imu_residual(
         r_dv = R_i^T (v_j - v_i - g T)               - dv(b)
         r_dp = R_i^T (p_j - p_i - v_i T - 0.5 g T^2) - dp(b)
 
-    ``differentiable=False`` (the error's path) takes the deltas from
-    :func:`preintegrate_value`, without their bias Jacobian.
+    with the deltas of :func:`preintegrate` at ``bias`` (any bias per row).
+    The linearizer and the error take them once per interval instead
+    (:func:`preintegrate_with_jacobian`, :func:`preintegrate_value`) and
+    call :func:`imu_residual_of_delta`.
     """
-    delta = (preintegrate if differentiable else preintegrate_value)(data, bias)
+    delta = preintegrate(data, bias)
+    return imu_residual_of_delta(pose_i, vel_i, pose_j, vel_j, delta, gravity, whitener)
+
+
+def imu_residual_of_delta(
+    pose_i: Pose3,
+    vel_i: torch.Tensor,
+    pose_j: Pose3,
+    vel_j: torch.Tensor,
+    delta: PreintegratedDelta,
+    gravity: float,
+    whitener: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`imu_residual` from given deltas."""
     T = delta.dt_total.to(pose_i.trans.dtype)[..., None]
     # Built on the device (no host-to-device copy: see _identity_quat).
     g = torch.cat([pose_i.trans.new_zeros(2), pose_i.trans.new_full((1,), -gravity)])

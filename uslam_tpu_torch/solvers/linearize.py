@@ -9,8 +9,9 @@ forward-mode derivative is one ``torch.func.jvp`` over a batch of tangent
 basis vectors: the factor functions broadcast over leading dimensions, so
 the ``dim`` basis directions ride as one extra leading axis and every
 column of the Jacobian comes out of a single pass. The IMU preintegration
-inside it is a ``torch.autograd.Function`` with its own ``jvp`` (the CUDA
-kernel ``csrc/preintegrate.cu`` on the card).
+runs once per interval (the CUDA kernel ``csrc/preintegrate.cu`` on the
+card) and reaches the tangent rows through a ``torch.autograd.Function``
+whose ``jvp`` is its bias Jacobian.
 
 :func:`linearize_graph` and :func:`graph_error` dispatch on the device of
 the values: on CUDA they replay a CUDA graph cached by shape
@@ -27,7 +28,14 @@ from typing import NamedTuple
 import torch
 
 from uslam_tpu_torch.factors.dvl import dvl_residual
-from uslam_tpu_torch.factors.imu import imu_residual
+from uslam_tpu_torch.factors.imu import (
+    BIAS_DIM,
+    JAC_ROWS,
+    PreintegratedDelta,
+    imu_residual_of_delta,
+    preintegrate_value,
+    preintegrate_with_jacobian,
+)
 from uslam_tpu_torch.factors.priors import prior_pose_residual, prior_vel_residual
 from uslam_tpu_torch.factors.stereo import stereo_residual
 from uslam_tpu_torch.geometry.camera import StereoCamera
@@ -35,6 +43,48 @@ from uslam_tpu_torch.geometry.se3 import Pose3, pose_local, pose_retract
 from uslam_tpu_torch.graph.builder import GraphArrays
 from uslam_tpu_torch.graph.values import Values
 from uslam_tpu_torch.solvers import compiled
+
+
+class _DeltaAtLinearizationBias(torch.autograd.Function):
+    """The IMU deltas of the linearization point, as the tangent rows see
+    them: ``forward`` returns the deltas preintegrated at the values' bias
+    b0, broadcast to the leading shape of ``bias``, whatever ``bias`` holds;
+    ``jvp`` is the bias Jacobian at b0 times the bias tangent. So it is
+    :func:`~uslam_tpu_torch.factors.imu.preintegrate` only at ``bias`` = b0,
+    the zero offset at which :func:`_lin` evaluates: it is no function of
+    the bias for any other caller."""
+
+    @staticmethod
+    def forward(q, v, p, jac, bias):
+        # Copies: forward mode writes into its outputs, which an expanded
+        # view forbids.
+        lead = bias.shape[:-1]
+        return tuple(x.expand(lead + x.shape[-1:]).clone() for x in (q, v, p))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[3])
+
+    @staticmethod
+    def jvp(ctx, q_t, v_t, p_t, jac_t, bias_t):
+        # jac (n, 10, 6), bias_t (..., n, 6): the tangent rows ride in the
+        # product's columns, so the Jacobian is not copied once per row.
+        (jac,) = ctx.saved_tensors
+        n = bias_t.shape[-2]
+        cols = bias_t.reshape(-1, n, BIAS_DIM).permute(1, 2, 0)  # (n, 6, B)
+        d = (jac @ cols).permute(2, 0, 1).reshape(bias_t.shape[:-1] + (JAC_ROWS,))
+        return d[..., 0:4], d[..., 4:7], d[..., 7:10]
+
+
+def _delta_at_linearization_bias(delta, jac, bias) -> PreintegratedDelta:
+    """``delta`` and ``jac`` (leading shape (n,)), preintegrated at b0, for
+    the tangent rows ``bias`` = b0 + d (..., n, 6) under ``torch.func.jvp``
+    at d = 0: bit for bit ``preintegrate`` at ``bias`` (its rows all
+    equal the one at b0, and ``jac`` times a unit tangent is exact), for one
+    preintegration per interval instead of one per tangent row."""
+    q, v, p = _DeltaAtLinearizationBias.apply(
+        delta.delta_q, delta.delta_v, delta.delta_p, jac, bias)
+    return PreintegratedDelta(q, v, p, delta.dt_total)
 
 
 class Linearization(NamedTuple):
@@ -132,17 +182,19 @@ def linearize_graph_eager(
     marg_r, marg_J = _lin(f_marg, (), 15, like)
 
     # ---- IMU: tangent [pose_i, vel_i, pose_j, vel_j, bias] (24) ----------
+    # Every tangent row sits at the one bias: preintegrate once per
+    # interval, then let the rows reach the deltas through their Jacobian.
     n_int = graph.imu.mask.shape[0]
     pose_i, vel_i, pose_j, vel_j = _frame_pairs(values, n_int)
+    delta0, jac0 = preintegrate_with_jacobian(graph.imu.data, values.bias)
 
     def f_imu(d):
-        return imu_residual(
+        return imu_residual_of_delta(
             pose_retract(pose_i, d[..., 0:6]),
             vel_i + d[..., 6:9],
             pose_retract(pose_j, d[..., 9:15]),
             vel_j + d[..., 15:18],
-            values.bias + d[..., 18:24],
-            graph.imu.data,
+            _delta_at_linearization_bias(delta0, jac0, values.bias + d[..., 18:24]),
             gravity,
             graph.imu.whitener,
         )
@@ -231,9 +283,9 @@ def graph_error_eager(
 
     n_int = graph.imu.mask.shape[0]
     pose_i, vel_i, pose_j, vel_j = _frame_pairs(values, n_int)
-    imu_r = imu_residual(
-        pose_i, vel_i, pose_j, vel_j, values.bias, graph.imu.data, gravity,
-        graph.imu.whitener, differentiable=False,
+    imu_r = imu_residual_of_delta(
+        pose_i, vel_i, pose_j, vel_j, preintegrate_value(graph.imu.data, values.bias), gravity,
+        graph.imu.whitener,
     )
     e = e + 0.5 * torch.sum((imu_r * graph.imu.mask[:, None]) ** 2)
 
