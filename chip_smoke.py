@@ -143,6 +143,21 @@ Phases, each of which raises (exit code != 0) on failure:
    (the 1k solve, the 2000-pose survey at its initial values and a 2 s
    dive's first chunk made for it).
 
+13. public surface: the JAX package's entry points beside the pipeline,
+   each with its launch counts set to 0 just before it and read just
+   after: ``extract_orb`` on one 1920x1080 image (3 fast_harris launches
+   and nothing else; bit-identical to ``extract_orb_batch`` of that image;
+   on ``SURFACE_CPU_IMAGES`` images equal to the CPU's, descriptors to
+   ROADMAP C5's standard; its ms per image beside ``extract_orb_batch``'s
+   on a 16-image chunk), ``hamming_distance_matrix`` at (1000, 8) x (1200,
+   8) (1 hamming launch, equal to ``hamming_plain``),
+   ``preintegrate_with_cov`` in float64 on the slice's IMU intervals (its
+   deltas against the preintegrate kernel's value-only variant, its
+   ``whitener_from_cov`` against the packer's numpy whitener), and the
+   native C++ whiteners and time join against numpy on the slice's
+   sequence. ``python3 chip_smoke.py --only-surface`` runs phases 1, 2 and
+   13 alone.
+
 After each of phases 4-12 the CUDA graphs it captured and replayed are
 printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2, the
 preintegration checks of phase 3 and phase 7's solve and graph checks.
@@ -284,6 +299,26 @@ IMAGE_TOPICS = ("/zedm/zed_node/left/image_rect_color", "/zedm/zed_node/right/im
 PARALLEL_LM_ITERS = 3
 PARALLEL_ERROR_RTOL = 1e-7
 PARALLEL_VALUES_ATOL = 1e-7
+# Phase 13: the public surface's entry points on the card. extract_orb on
+# the card against the CPU: masks, positions and levels exact, Harris
+# scores and angles to tests/test_torch_frontend.py's 1e-5 relative and
+# 1e-3 rad, descriptors equal where the angle is bit-equal and elsewhere
+# to ROADMAP C5's standard (at most 2 flipped bits, in under 1% of the
+# keypoints: another float32 order of the moment sums moves a steered
+# sample by a pixel). preintegrate_with_cov's float64 deltas against the
+# preintegrate kernel's value-only variant, relative to each output's
+# largest entry (PREINT_RTOL); its whitener against the packer's numpy
+# whitener, and the native C++ whitener against the same (the JAX
+# package's own bound, tests/test_native.py), relative to the largest entry.
+SURFACE_IMAGES = 16
+SURFACE_CPU_IMAGES = 8   # of the chunk, held to the CPU (48 keypoints each at most)
+SURFACE_HAMMING = (1000, 1200)
+SURFACE_SCORE_RTOL = 1e-5
+SURFACE_ANGLE_ATOL = 1e-3
+SURFACE_MAX_FLIPPED_BITS = 2
+SURFACE_FLIPPED_SHARE = 0.01
+SURFACE_WHITENER_RTOL = 1e-9
+NATIVE_WHITENER_RTOL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -2640,12 +2675,188 @@ def parallel_phase(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
 
 
 
+# ---- phase 13: the public surface on the card ----------------------------------
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| over max |b| (numpy or tensors)."""
+    import numpy as np
+
+    a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64) for x in (a, b))
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def surface_phase(cfg) -> dict:
+    """Phase 13: the entry points the JAX package exports beside the
+    pipeline, on the card: ``extract_orb`` on one 1080p image (one
+    ``fast_harris`` launch per level; bit-identical to ``extract_orb_batch``
+    of one image; on SURFACE_CPU_IMAGES images the CPU's to the SURFACE_*
+    standard; ms per image beside the chunked path's),
+    ``hamming_distance_matrix`` at SURFACE_HAMMING (one ``hamming`` launch,
+    exact), ``preintegrate_with_cov`` and
+    ``whitener_from_cov`` in float64 on the slice's IMU intervals, and the
+    native time join and whiteners on the slice's sequence."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch import native
+    from uslam_tpu_torch.factors import imu
+    from uslam_tpu_torch.frontend import extract_orb, hamming_distance_matrix, kernels
+    from uslam_tpu_torch.frontend.orb import extract_orb_batch
+    from uslam_tpu_torch.graph.builder import compute_imu_whiteners
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.io.timesync import approximate_time_join
+
+    t_phase = time.perf_counter()
+    log("public surface (phase 13):")
+    checks, launches = {}, {}
+    levels = cfg.frontend.pyramid_levels
+    shape = (SURFACE_IMAGES, cfg.camera.resolution_y, cfg.camera.resolution_x)
+    chunk = textured_images(shape, 13)
+    img = chunk[0].contiguous()
+
+    kernels.reset_launch_counts()
+    kp = extract_orb(img, cfg.frontend)
+    torch.cuda.synchronize()
+    launches["extract_orb"] = dict(kernels.launch_counts)
+    one = extract_orb_batch(img[None], cfg.frontend)
+    checks[f"extract_orb: {levels} fast_harris launches, nothing else"] = (
+        launches["extract_orb"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0})
+    checks["extract_orb bit-identical to extract_orb_batch of one image"] = all(
+        torch.equal(a, b[0]) for a, b in zip(kp, one))
+
+    t0 = time.perf_counter()
+    pairs = [(extract_orb(im, cfg.frontend), extract_orb(im.cpu(), cfg.frontend))
+             for im in chunk[:SURFACE_CPU_IMAGES]]
+    t_cpu = time.perf_counter() - t0
+    card = [np.concatenate([a.cpu().numpy() for a in f]) for f in zip(*(c for c, _ in pairs))]
+    ref = [np.concatenate([a.numpy() for a in f]) for f in zip(*(r for _, r in pairs))]
+    m = ref[5]
+    same_angle = m & (card[2] == ref[2])
+    flipped = np.unpackbits((card[4] ^ ref[4]).view(np.uint8), axis=-1).sum(-1)[m]
+    score_err = _rel_max(card[1][m], ref[1][m]) if m.any() else 0.0
+    angle_err = float(np.abs(card[2] - ref[2])[m].max()) if m.any() else 0.0
+    log(f"  extract_orb on the card against the CPU, {SURFACE_CPU_IMAGES} images "
+        f"{tuple(img.shape)} ({t_cpu!r} s): "
+        f"{int(m.sum())} keypoints, masks equal {np.array_equal(card[5], m)}, xy equal "
+        f"{np.array_equal(card[0][m], ref[0][m])}, levels equal "
+        f"{np.array_equal(card[3][m], ref[3][m])}; score rel err {score_err!r}, angle err "
+        f"{angle_err!r} rad, angles bit-equal {int(same_angle.sum())} of {int(m.sum())}; "
+        f"keypoints with flipped descriptor bits {int((flipped > 0).sum())} "
+        f"(max {int(flipped.max()) if m.any() else 0} bits)")
+    checks["extract_orb on the card equals the CPU's (masks, xy, levels; C5 descriptors)"] = (
+        m.sum() >= 100 and np.array_equal(card[5], m)
+        and np.array_equal(card[0][m], ref[0][m]) and np.array_equal(card[3][m], ref[3][m])
+        and score_err <= SURFACE_SCORE_RTOL and angle_err <= SURFACE_ANGLE_ATOL
+        and np.array_equal(card[4][same_angle], ref[4][same_angle])
+        and flipped.max() <= SURFACE_MAX_FLIPPED_BITS
+        and (flipped > 0).mean() < SURFACE_FLIPPED_SHARE)
+
+    one_ms = cuda_ms(lambda: extract_orb(img, cfg.frontend), 20)
+    batch_ms = cuda_ms(lambda: extract_orb_batch(chunk, cfg.frontend), 5)
+    one_wall, _ = _median_ms(lambda: extract_orb(img, cfg.frontend), 5)
+    batch_wall, _ = _median_ms(lambda: extract_orb_batch(chunk, cfg.frontend), 5)
+    # CUDA events around back-to-back calls: where the host enqueues more
+    # slowly than the device runs (a single image), this is host-bound.
+    log(f"  extract_orb ms per {shape[2]}x{shape[1]} image: CUDA events over back-to-back "
+        f"calls {one_ms!r}, host wall (synchronized) {one_wall!r}; extract_orb_batch of "
+        f"{SURFACE_IMAGES}, per image: events {batch_ms / SURFACE_IMAGES!r}, host wall "
+        f"{batch_wall / SURFACE_IMAGES!r}")
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    da, db = (torch.randint(-2**31, 2**31 - 1, (n, 8), generator=gen, device="cuda",
+                            dtype=torch.int32) for n in SURFACE_HAMMING)
+    kernels.reset_launch_counts()
+    dist = hamming_distance_matrix(da, db)
+    torch.cuda.synchronize()
+    launches["hamming_distance_matrix"] = dict(kernels.launch_counts)
+    plain = kernels.hamming_plain(da[None], db[None])[0]
+    hd_ms = cuda_ms(lambda: hamming_distance_matrix(da, db), KERNEL_REPS)
+    log(f"  hamming_distance_matrix {tuple(da.shape)} x {tuple(db.shape)}: launches "
+        f"{launches['hamming_distance_matrix']}, max_abs_err vs hamming_plain "
+        f"{int((dist - plain).abs().max())}, {hd_ms!r} ms")
+    checks["hamming_distance_matrix: 1 hamming launch, nothing else"] = (
+        launches["hamming_distance_matrix"] == {"fast_harris": 0, "hamming": 1, "preintegrate": 0})
+    checks["hamming_distance_matrix equals hamming_plain"] = (
+        dist.shape == SURFACE_HAMMING and torch.equal(dist, plain))
+
+    # The slice's sequence with its synthetic features (not rendered): the
+    # streams its time join takes and the IMU intervals the packer gives it.
+    seq = generate_synthetic_sequence(SyntheticSpec(duration=20.0, odom_drift_rate=0.05),
+                                      cfg.camera, render_images=False)
+    data_np = pack_sequence(seq, cfg)[0].imu.data
+    data = imu.ImuIntervalData(*(torch.from_numpy(np.asarray(x, np.float64)).cuda()
+                                 for x in data_np))
+    zero = torch.zeros(6, dtype=torch.float64, device="cuda")
+    covs = (cfg.imu.accel_cov, cfg.imu.gyro_cov, cfg.imu.integration_cov)
+    kernels.reset_launch_counts()
+    delta, P = imu.preintegrate_with_cov(data, zero, *covs)
+    cov_launches = dict(kernels.launch_counts)
+    value = imu.preintegrate_value(data, zero)
+    delta_err = max(_rel_max(a, b) for a, b in zip(delta, value))
+    W = imu.whitener_from_cov(P, jitter=1e-10)
+    W_np = compute_imu_whiteners(data_np, cfg)
+    w_err = _rel_max(W, W_np)
+    cov_ms, _ = _median_ms(lambda: imu.preintegrate_with_cov(data, zero, *covs))
+    log(f"  preintegrate_with_cov float64 on {tuple(data.acc.shape)} (the slice's intervals): "
+        f"deltas vs the preintegrate kernel's value-only variant rel err {delta_err!r}; "
+        f"whitener_from_cov vs the packer's numpy whitener rel err {w_err!r}; host "
+        f"{cov_ms!r} ms, plain PyTorch (launches {cov_launches})")
+    checks["preintegrate_with_cov deltas = the kernel's (float64, PREINT_RTOL)"] = (
+        delta_err <= PREINT_RTOL["torch.float64"])
+    checks[f"whitener_from_cov = the numpy whitener to {SURFACE_WHITENER_RTOL}"] = (
+        w_err <= SURFACE_WHITENER_RTOL)
+
+    # Medians of 3: the first native call also builds the library (g++).
+    t_native, W_native = _median_ms(
+        lambda: native.imu_whiteners(data_np.acc, data_np.gyro, data_np.dt, *covs))
+    t_numpy, _ = _median_ms(lambda: compute_imu_whiteners(data_np, cfg))
+    native_err = _rel_max(W_native, W_np)
+    feat_t = np.array([f.t for f in seq.features])
+    streams = [seq.dvl_twist_t, feat_t]
+    join = native.approx_time_join(seq.dvl_pose_t, streams, cfg.timesync.slop)
+    join_ref = approximate_time_join(seq.dvl_pose_t, streams, cfg.timesync.slop)
+    log(f"  native imu_whiteners vs numpy on the slice's intervals: rel err {native_err!r} "
+        f"(max |diff| {float(np.abs(W_native - W_np).max())!r}); {t_native!r} ms vs "
+        f"{t_numpy!r} ms (host, median of 3); native approx_time_join: {len(join)} keyframes, equal "
+        f"to io.timesync's {join == join_ref}")
+    checks[f"native imu_whiteners = numpy to {NATIVE_WHITENER_RTOL}"] = (
+        native_err <= NATIVE_WHITENER_RTOL)
+    checks["native approx_time_join = io.timesync.approximate_time_join"] = (
+        len(join) == len(seq.dvl_pose_t) and join == join_ref)
+    log(f"public surface phase: {time.perf_counter() - t_phase!r} s")
+    return {"checks": checks, "launches": launches}
+
+
+def finish_alone(checks: dict, device_name: str) -> int:
+    """The end of a run of one phase: its checks, then the last line."""
+    import torch
+
+    for name, ok in checks.items():
+        log(f"  check {'PASS' if ok else 'FAIL'}: {name}")
+    if not all(checks.values()):
+        raise AssertionError("checks failed")
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
+    }), flush=True)
+    return 0
+
+
+def only_surface(device_name: str) -> int:
+    """``--only-surface``: phase 13 alone."""
+    from uslam_tpu_torch.config import UslamConfig
+
+    checks = surface_phase(UslamConfig())["checks"]
+    return finish_alone(checks, device_name)
+
+
 def only_parallel(device_name: str) -> int:
     """``--only-parallel``: phase 12 alone, on inputs made for it (the 1k
     solve, the 2000-pose survey at its initial values, the first chunk of a
     2 s dive)."""
     import numpy as np
-    import torch
 
     from uslam_tpu_torch.config import UslamConfig
     from uslam_tpu_torch.graph.packing import pack_sequence
@@ -2661,23 +2872,13 @@ def only_parallel(device_name: str) -> int:
     g_np, v_np, _, _ = pack_sequence(s_seq, s_cfg)
     survey = {"graph": to_port(g_np, "cuda"), "values": to_port(v_np, "cuda"), "cfg": s_cfg}
     checks = parallel_phase(load_1k(), survey, pairs.astype(np.uint8), cfg)["checks"]
-    for name, ok in checks.items():
-        log(f"  check {'PASS' if ok else 'FAIL'}: {name}")
-    if not all(checks.values()):
-        raise AssertionError("checks failed")
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
-    }), flush=True)
-    return 0
+    return finish_alone(checks, device_name)
 
 
 def only_compiled(device_name: str) -> int:
     """``--only-compiled``: the preintegration kernel against its plain
     version and oracle (phase 3's part), then the 1k solve and its graph
     checks and per-iteration times (phase 7's part)."""
-    import torch
-
     from uslam_tpu_torch.config import UslamConfig
     from uslam_tpu_torch.frontend import kernels
 
@@ -2688,15 +2889,7 @@ def only_compiled(device_name: str) -> int:
         f"{one_k['result'].metrics['solve_seconds']!r} s; launches {dict(kernels.launch_counts)}")
     log_graphs("the 1k solve")
     checks = compiled_1k(one_k)["checks"]
-    for name, ok in checks.items():
-        log(f"  check {'PASS' if ok else 'FAIL'}: {name}")
-    if not all(checks.values()):
-        raise AssertionError("checks failed")
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
-    }), flush=True)
-    return 0
+    return finish_alone(checks, device_name)
 
 
 def main() -> int:
@@ -2751,9 +2944,11 @@ def main() -> int:
         return only_parallel(device_name)
     if sys.argv[1:] == ["--only-compiled"]:
         return only_compiled(device_name)
+    if sys.argv[1:] == ["--only-surface"]:
+        return only_surface(device_name)
     if sys.argv[1:]:
-        print(f"unknown arguments {sys.argv[1:]}: none, --only-parallel or --only-compiled",
-              file=sys.stderr)
+        print(f"unknown arguments {sys.argv[1:]}: none, --only-parallel, --only-compiled or "
+              "--only-surface", file=sys.stderr)
         return 2
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -2971,6 +3166,10 @@ def main() -> int:
     par = parallel["launches"]
     log_graphs("phase 12 (multi-device)")
 
+    # ---- 13. the public surface: extract_orb, hamming_distance_matrix, ... ---
+    surface = surface_phase(cfg)
+    checks.update(surface["checks"])
+
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
     )
@@ -3003,6 +3202,8 @@ def main() -> int:
                 # Phase 12 (a): one process_stereo_pairs_sharded and one
                 # extract_orb_frames_sharded call over phase 3's first chunk.
                 "parallel_launches": {k: v["fast_harris"] for k, v in par.items()},
+                # Phase 13: extract_orb on one 1080p image.
+                "surface_launches": {k: v["fast_harris"] for k, v in surface["launches"].items()},
             },
             {
                 "name": "hamming", "route": "cuda",
@@ -3019,6 +3220,8 @@ def main() -> int:
                 "cli_klt_launches": ingest["cli_klt_launches"]["hamming"],
                 "keyframe_ms": hm_kf_ms, "keyframe_bound_ms": hm_kf_bound,
                 "parallel_launches": {k: v["hamming"] for k, v in par.items()},
+                # Phase 13: hamming_distance_matrix at SURFACE_HAMMING.
+                "surface_launches": {k: v["hamming"] for k, v in surface["launches"].items()},
             },
             {
                 "name": "preintegrate", "route": "cuda",

@@ -112,8 +112,12 @@ def test_slice_never_imports_jax():
         "       'solvers.banded', 'frontend.klt', '__main__', 'io.filters', 'io.images',\n"
         "       'io.lz4f', 'io.rosbag', 'native', 'utils', 'utils.checkpoint', 'utils.logging',\n"
         "       'utils.profiling', 'collectives', 'parallel', 'parallel.mesh',\n"
-        "       'parallel.frames', 'parallel.launch'}\n"
+        "       'parallel.frames', 'parallel.launch', 'geometry', 'frontend', 'factors',\n"
+        "       'graph', 'solvers', 'eval'}\n"
         "assert {'uslam_tpu_torch.' + n for n in new} <= set(names) and len(names) >= 55, names\n"
+        "for pkg in ('geometry', 'frontend', 'factors', 'graph', 'solvers', 'eval'):\n"
+        "    mod = importlib.import_module('uslam_tpu_torch.' + pkg)\n"
+        "    [getattr(mod, n) for n in mod.__all__]\n"
         "from uslam_tpu_torch import FixedLagSmoother, OnlineSlam\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'uslam_tpu'))\n"
         "assert not bad, bad\n"

@@ -35,6 +35,10 @@ package never differentiates them either).
 The whitener (GTSAM's sigma^2/dt discrete covariance, fixed at
 preintegration) is computed once at packing time in float64 numpy
 (:func:`uslam_tpu_torch.graph.builder.compute_imu_whiteners`).
+:func:`preintegrate_with_cov` and :func:`whitener_from_cov` are the JAX
+package's tensor versions of the same (the deltas beside the covariance,
+then inv(chol(P))), plain PyTorch on the device of their inputs: no main
+path reads them on the device.
 Gravity follows ``MakeSharedU``: g = (0, 0, -gravity).
 """
 
@@ -53,7 +57,10 @@ from uslam_tpu_torch.geometry.so3 import (
     quat_multiply,
     quat_normalize,
     quat_rotate,
+    quat_to_matrix,
     so3_exp,
+    so3_hat,
+    so3_left_jacobian,
     so3_log,
 )
 
@@ -349,6 +356,85 @@ def preintegrate(data: ImuIntervalData, bias: torch.Tensor) -> PreintegratedDelt
     ``bias`` may carry extra leading dimensions; they broadcast against the
     interval dimensions of ``data``."""
     return PreintegratedDelta(*_Preintegrate.apply(data.acc, data.gyro, data.dt, bias)[:4])
+
+
+def preintegrate_with_cov(
+    data: ImuIntervalData,
+    bias: torch.Tensor,
+    accel_cov: float,
+    gyro_cov: float,
+    integration_cov: float,
+) -> tuple[PreintegratedDelta, torch.Tensor]:
+    """Preintegrate and propagate the 9x9 covariance, state [dtheta, dv, dp]
+    (Forster et al. TRO'17 eq. 62-63, the model GTSAM implements): with R_k
+    the preintegrated rotation so far, a = acc - ba, w = gyro - bg,
+
+        A = [ Exp(w dt)^T          0      0 ]
+            [ -R_k hat(a) dt       I      0 ]
+            [ -0.5 R_k hat(a) dt^2 I dt   I ]
+
+        noise: dtheta <- Jr(w dt) dt n_g; dv <- R_k dt n_a;
+               dp <- 0.5 R_k dt^2 n_a (+ integration noise on dp),
+
+    each sample's noise the continuous-time density over dt (GTSAM's
+    sigma^2 / dt). A loop over the samples in the order of the JAX
+    package's scan; ``bias`` broadcasts against the intervals' leading
+    dimensions as in :func:`preintegrate_loop`. Returns (deltas, P (..., 9, 9))."""
+    ba, bg = bias[..., :3], bias[..., 3:]
+    acc, gyro, dts = data.acc, data.gyro, data.dt
+    lead = torch.broadcast_shapes(acc.shape[:-2], ba.shape[:-1])
+    eye = torch.eye(3, dtype=acc.dtype, device=acc.device)
+    q = _identity_quat(lead, acc)
+    v = acc.new_zeros(lead + (3,))
+    p = acc.new_zeros(lead + (3,))
+    t = dts.new_zeros(dts.shape[:-1])
+    P = acc.new_zeros(lead + (9, 9))
+    for k in range(acc.shape[-2]):
+        a_c = acc[..., k, :] - ba
+        w_c = gyro[..., k, :] - bg
+        dt = dts[..., k, None]
+        h = dt[..., None]
+        Rk = quat_to_matrix(q)
+        acc_world = (Rk @ a_c[..., None])[..., 0]
+
+        wdt = w_c * dt
+        dq = so3_exp(wdt)
+        hat_a = so3_hat(a_c)
+        A = acc.new_zeros(lead + (9, 9))
+        A[..., 0:3, 0:3] = quat_to_matrix(dq).mT
+        A[..., 3:6, 0:3] = -Rk @ hat_a * h
+        A[..., 3:6, 3:6] = eye
+        A[..., 6:9, 0:3] = -0.5 * Rk @ hat_a * h * h
+        A[..., 6:9, 3:6] = eye * h
+        A[..., 6:9, 6:9] = eye
+
+        # Right Jacobian Jr(wdt) = J_l(-wdt).
+        G_g = so3_left_jacobian(-wdt) * h
+        G_a_v = Rk * h
+        G_a_p = 0.5 * Rk * h * h
+        inv_dt = torch.where(h > 0.0, 1.0 / torch.clamp(h, min=1e-9), 0.0)
+        Q = acc.new_zeros(lead + (9, 9))
+        Q[..., 0:3, 0:3] = gyro_cov * inv_dt * (G_g @ G_g.mT)
+        Q[..., 3:6, 3:6] = accel_cov * inv_dt * (G_a_v @ G_a_v.mT)
+        Q[..., 3:6, 6:9] = accel_cov * inv_dt * (G_a_v @ G_a_p.mT)
+        Q[..., 6:9, 3:6] = accel_cov * inv_dt * (G_a_p @ G_a_v.mT)
+        Q[..., 6:9, 6:9] = accel_cov * inv_dt * (G_a_p @ G_a_p.mT) + integration_cov * h * eye
+
+        # dt == 0 padding: identity transition, zero noise.
+        P = torch.where(h <= 0.0, P, A @ P @ A.mT + Q)
+        p = p + v * dt + 0.5 * acc_world * dt * dt
+        v = v + acc_world * dt
+        q = quat_normalize(quat_multiply(q, dq))
+        t = t + dts[..., k]
+    return PreintegratedDelta(q, v, p, t), P
+
+
+def whitener_from_cov(P: torch.Tensor, jitter: float = 1e-12) -> torch.Tensor:
+    """W = inv(chol(P + jitter I)), lower triangular, so W P W^T = I: the
+    whitened residual is W @ r."""
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    L = torch.linalg.cholesky(P + jitter * eye)
+    return torch.linalg.solve_triangular(L, eye.expand(P.shape), upper=False)
 
 
 def imu_residual(

@@ -1,6 +1,6 @@
-"""Prior factors on the first pose and velocity (port of
-:mod:`uslam_tpu.factors.priors`). The bias prior is a weighted difference
-inlined in the linearizer, as in the JAX package."""
+"""Prior factors on the first pose, velocity and IMU bias (port of
+:mod:`uslam_tpu.factors.priors`). The linearizer inlines the bias prior
+as a weighted difference, as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -16,3 +16,7 @@ def prior_pose_residual(pose: Pose3, prior: Pose3, sigmas: torch.Tensor) -> torc
 
 def prior_vel_residual(vel: torch.Tensor, prior: torch.Tensor, sigma) -> torch.Tensor:
     return (vel - prior) / sigma
+
+
+def prior_bias_residual(bias: torch.Tensor, prior: torch.Tensor, sigma) -> torch.Tensor:
+    return (bias - prior) / sigma

@@ -4,7 +4,8 @@ Port of :mod:`uslam_tpu.frontend.match`. The distance matrices of all the
 frames of a chunk come from ONE launch of the ``hamming`` kernel: the
 chunked tracker computes the stereo and the temporal matrices together and
 hands each to :func:`match_from_dist` / :func:`stereo_match_from_dist`;
-:func:`match_descriptors` and :func:`stereo_match` compute their own. Policy:
+:func:`match_descriptors` and :func:`stereo_match` compute their own, and
+:func:`hamming_distance_matrix` one frame's (a launch of one). Policy:
 mutual nearest neighbour + Lowe ratio + absolute distance gate; stereo adds
 the rectified-row gate and a positive-disparity gate.
 
@@ -18,9 +19,24 @@ from typing import NamedTuple
 
 import torch
 
-from uslam_tpu_torch.frontend.kernels import hamming
+from uslam_tpu_torch.frontend.kernels import hamming, hamming_plain
 
 BIG = 1 << 20
+
+
+def hamming_distance_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """(Na, W) x (Nb, W) packed descriptor words -> (Na, Nb) int32 Hamming
+    distances. Words are int32 bit-views (uint32 is viewed as int32). On
+    the card: one ``hamming`` launch, which takes W = 8 (256 bits) and
+    raises on any other width; on the CPU: its plain version, any W."""
+    if da.dim() != 2 or db.dim() != 2 or da.shape[1] != db.shape[1]:
+        raise ValueError(f"hamming_distance_matrix: shapes {tuple(da.shape)} x {tuple(db.shape)}")
+    da, db = (x.view(torch.int32) if x.dtype == torch.uint32 else x for x in (da, db))
+    if da.dtype != torch.int32 or db.dtype != torch.int32:
+        raise ValueError(f"hamming_distance_matrix: words of {da.dtype}, {db.dtype}")
+    if da.device.type == "cpu" and db.device.type == "cpu":
+        return hamming_plain(da[None], db[None])[0]
+    return hamming(da.contiguous()[None], db.contiguous()[None])[0]
 
 
 class Matches(NamedTuple):

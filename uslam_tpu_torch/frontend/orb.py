@@ -5,7 +5,7 @@ Port of :mod:`uslam_tpu.frontend.orb`, batched over images: one call
 extracts a whole chunk of frames, and each pyramid level is ONE launch of
 the ``fast_harris`` kernel for every image of the chunk. Every image yields
 exactly ``grid_rows * grid_cols * max_features_per_cell`` slots; ``mask``
-marks the real ones.
+marks the real ones. :func:`extract_orb` is the same on one image.
 
 ``jax.lax.top_k`` returns the lowest index first among equal values (and
 the cells are full of equal filler scores); ``torch.topk`` promises no
@@ -183,3 +183,10 @@ def extract_orb_batch(imgs: torch.Tensor, cfg: FrontendConfig = FrontendConfig()
     return out._replace(
         mask=out.mask & (out.score > neg * 0.5) & (take(scores) > neg * 0.5)
     )
+
+
+def extract_orb(img: torch.Tensor, cfg: FrontendConfig = FrontendConfig()) -> Keypoints:
+    """ORB on one (H, W) float32 image: :func:`extract_orb_batch` of a batch
+    of one (one ``fast_harris`` launch per pyramid level on the card), the
+    keypoints without the batch dimension."""
+    return Keypoints(*(f[0] for f in extract_orb_batch(img[None], cfg)))

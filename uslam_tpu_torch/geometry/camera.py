@@ -49,6 +49,16 @@ def stereo_project(cam: StereoCamera, p_cam: torch.Tensor) -> torch.Tensor:
     return torch.stack([uL, uR, v], dim=-1)
 
 
+def normalized_to_pixels(u0, v0, u1, v1, resolution_x: float, resolution_y: float):
+    """Front-end features from [-1, 1] to pixels, exactly reference
+    batch.py:152-154: uL = (u0 + 1) res_x / 2, uR = (u1 + 1) res_x / 2,
+    v = ((v0 + v1) / 2 + 1) res_y / 2. Returns (..., 3) = (uL, uR, v)."""
+    uL = (u0 + 1.0) * 0.5 * resolution_x
+    uR = (u1 + 1.0) * 0.5 * resolution_x
+    v = ((v0 + v1) / 2.0 + 1.0) * 0.5 * resolution_y
+    return torch.stack([uL, uR, v], dim=-1)
+
+
 def project_world_point(
     cam: StereoCamera, pose_world_body: Pose3, p_world: torch.Tensor
 ) -> torch.Tensor:

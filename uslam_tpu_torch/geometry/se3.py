@@ -12,6 +12,7 @@ import torch
 
 from uslam_tpu_torch.geometry.so3 import (
     quat_conjugate,
+    quat_identity,
     quat_multiply,
     quat_normalize,
     quat_rotate,
@@ -28,6 +29,11 @@ class Pose3(NamedTuple):
 
     quat: torch.Tensor
     trans: torch.Tensor
+
+
+def pose_identity(dtype=torch.float32, device="cuda") -> Pose3:
+    """The identity pose on ``device`` (the card unless the caller asks for another)."""
+    return Pose3(quat_identity(dtype, device), torch.zeros(3, dtype=dtype, device=device))
 
 
 def pose_compose(a: Pose3, b: Pose3) -> Pose3:

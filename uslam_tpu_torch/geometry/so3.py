@@ -17,6 +17,11 @@ import torch
 _EPS = 1e-8
 
 
+def quat_identity(dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """[1, 0, 0, 0] on ``device`` (the card unless the caller asks for another)."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
@@ -55,6 +60,60 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + qw * t + _cross(qv, t)
 
 
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion(s) [w,x,y,z] (...,4) -> rotation matrices (...,3,3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (...,3,3) -> unit quaternions [w,x,y,z] (...,4).
+
+    Branch-free Shepperd method, as the JAX package: all four candidates,
+    the one with the largest pivot kept (the first on ties), sign w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS * _EPS))
+
+    qw0 = safe_sqrt(1.0 + tr) / 2.0
+    q0 = torch.stack(
+        [qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0), (m10 - m01) / (4 * qw0)], dim=-1
+    )
+    qx1 = safe_sqrt(1.0 + m00 - m11 - m22) / 2.0
+    q1 = torch.stack(
+        [(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1)], dim=-1
+    )
+    qy2 = safe_sqrt(1.0 - m00 + m11 - m22) / 2.0
+    q2 = torch.stack(
+        [(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2)], dim=-1
+    )
+    qz3 = safe_sqrt(1.0 - m00 - m11 + m22) / 2.0
+    q3 = torch.stack(
+        [(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3], dim=-1
+    )
+    pivots = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], dim=-1)
+    best = torch.argmax(pivots, dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return quat_normalize(q)
+
+
 def so3_hat(w: torch.Tensor) -> torch.Tensor:
     """Vector(s) (...,3) -> skew-symmetric matrix (...,3,3)."""
     zeros = torch.zeros_like(w[..., 0])
@@ -62,6 +121,11 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [zeros, -wz, wy, wz, zeros, -wx, -wy, wx, zeros], dim=-1
     ).reshape(w.shape[:-1] + (3, 3))
+
+
+def so3_vee(m: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix (...,3,3) -> vector (...,3)."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
 
 
 def _theta(w: torch.Tensor):

@@ -41,6 +41,26 @@ class Values(NamedTuple):
     def pose(self, i) -> Pose3:
         return Pose3(self.pose_quat[i], self.pose_trans[i])
 
+    def poses(self) -> Pose3:
+        return Pose3(self.pose_quat, self.pose_trans)
+
+
+def tangent_dim(num_poses: int, num_landmarks: int) -> int:
+    return FRAME_DIM * num_poses + BIAS_DIM + LM_DIM * num_landmarks
+
+
+def frame_offset(i):
+    """Tangent offset of pose i; vel i is at +POSE_DIM."""
+    return FRAME_DIM * i
+
+
+def bias_offset(num_poses: int) -> int:
+    return FRAME_DIM * num_poses
+
+
+def landmark_offset(num_poses: int, j):
+    return FRAME_DIM * num_poses + BIAS_DIM + LM_DIM * j
+
 
 def values_retract(values: Values, delta: torch.Tensor) -> Values:
     """Poses by the SE(3) expmap (right perturbation), the rest by addition

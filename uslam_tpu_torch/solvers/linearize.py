@@ -112,6 +112,19 @@ class Linearization(NamedTuple):
     stereo_J_pose: torch.Tensor  # (F, 3, 6)
     stereo_J_lm: torch.Tensor    # (F, 3, 3)
 
+    def error(self) -> torch.Tensor:
+        """0.5 * sum of squared whitened residuals (GTSAM error), summed in
+        the JAX package's order."""
+        return 0.5 * (
+            torch.sum(self.prior_pose_r**2)
+            + torch.sum(self.prior_vel_r**2)
+            + torch.sum(self.prior_bias_r**2)
+            + torch.sum(self.marg_r**2)
+            + torch.sum(self.imu_r**2)
+            + torch.sum(self.dvl_r**2)
+            + torch.sum(self.stereo_r**2)
+        )
+
 
 def _lin(fn, batch: tuple, dim: int, like: torch.Tensor):
     """Residual ``fn`` of a tangent (..., *batch, dim) -> (r0 (*batch, r),

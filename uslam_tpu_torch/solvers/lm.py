@@ -7,10 +7,11 @@ floor by default), GTSAM's ``checkConvergence`` on accepted steps, and the
 plateau stop. A rejected step re-solves with the SAME linearization; only
 an accepted step re-linearizes.
 
-The JAX package's ``lax.while_loop`` becomes a host loop. Each iteration
-reads back one number, the candidate's error; the accept/reject decision
-and the lambda, stall and convergence bookkeeping then run on the host in
-the solve's floating type, so every comparison rounds as the JAX loop's did.
+The JAX package's ``lax.while_loop`` becomes a host loop over the same
+:class:`LMState`. Each iteration reads back one number, the candidate's
+error; the accept/reject decision and the lambda, stall and convergence
+bookkeeping then run on the host in the solve's floating type, so every
+comparison rounds as the JAX loop's did.
 
 The default linear solver is the landmark Schur complement with velocity
 elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
@@ -61,6 +62,19 @@ def check_finite(stage: str, *tensors: torch.Tensor, group=None) -> None:
     bad = torch.stack([~torch.isfinite(t).all() for t in tensors]).any()
     if any_rank(bad, group):
         raise FloatingPointError(f"debug_nans: non-finite value after the {stage} stage")
+
+
+class LMState(NamedTuple):
+    """The loop's state between iterations (the JAX package's fields);
+    ``error`` and ``lam`` are numpy scalars of the solve's float type."""
+
+    values: Values
+    lin: object            # Linearization at `values` (reused on reject)
+    error: float
+    lam: float
+    iterations: int
+    stall: int             # consecutive iterations without meaningful decrease
+    converged: bool
 
 
 class LMStats(NamedTuple):
@@ -163,16 +177,9 @@ def optimize_lm(
             check("linearize", *lin)
         return lin
 
-    values = initial
-    # On the card lin holds clones of a replayed graph's outputs, so it
-    # outlives the error's replays (another graph) and later linearizations.
-    lin = linearize(values)
-    error = err_fn(values)
-    init_error = error
-    lam = f(cfg.lambda_initial)
-    iterations, stall, converged = 0, 0, False
-    while iterations < cfg.max_iterations and not converged:
-        candidate = values_retract(values, solve(lin, lam))
+    def step(state: LMState) -> LMState:
+        error = state.error
+        candidate = values_retract(state.values, solve(state.lin, state.lam))
         if check:
             check("step", *candidate)
         new_error = err_fn(candidate)
@@ -181,9 +188,7 @@ def optimize_lm(
         if not math.isfinite(new_error):
             new_error = f(np.inf)
         accept = bool(new_error < error)
-        if accept:
-            values = candidate
-            lin = linearize(values)
+        values, lin = (candidate, linearize(candidate)) if accept else (state.values, state.lin)
 
         decrease = np.abs(error - new_error)
         converged = accept and bool(
@@ -192,30 +197,37 @@ def optimize_lm(
             | (decrease <= cfg.relative_error_tol * error)
         )
         new_lam = (
-            np.maximum(lam / f(cfg.lambda_factor), f(cfg.lambda_lower_bound))
+            np.maximum(state.lam / f(cfg.lambda_factor), f(cfg.lambda_lower_bound))
             if accept
-            else lam * f(cfg.lambda_factor)
+            else state.lam * f(cfg.lambda_factor)
         )
         converged = converged or bool(new_lam > cfg.lambda_upper_bound)
         # Plateau stop: consecutive iterations whose error change stays in
         # the progress band; a reject that degraded the error a lot neither
         # counts nor resets.
         band = np.maximum(f(cfg.plateau_rtol) * error, f(10.0 * cfg.absolute_error_tol))
+        stall = state.stall
         if accept and (error - new_error) > band:
             stall = 0
         elif decrease <= band:
             stall += 1
         if cfg.plateau_patience > 0:
             converged = converged or stall >= cfg.plateau_patience
-        if accept:
-            error = new_error
-        lam = f(new_lam)
-        iterations += 1
+        return LMState(values, lin, new_error if accept else error, f(new_lam),
+                       state.iterations + 1, stall, converged)
 
-    return values, LMStats(
+    # On the card lin holds clones of a replayed graph's outputs, so it
+    # outlives the error's replays (another graph) and later linearizations.
+    lin = linearize(initial)
+    init_error = err_fn(initial)
+    state = LMState(initial, lin, init_error, f(cfg.lambda_initial), 0, 0, False)
+    while state.iterations < cfg.max_iterations and not state.converged:
+        state = step(state)
+
+    return state.values, LMStats(
         initial_error=float(init_error),
-        final_error=float(error),
-        iterations=iterations,
-        final_lambda=float(lam),
-        converged=converged,
+        final_error=float(state.error),
+        iterations=state.iterations,
+        final_lambda=float(state.lam),
+        converged=state.converged,
     )
