@@ -158,9 +158,26 @@ Phases, each of which raises (exit code != 0) on failure:
    sequence. ``python3 chip_smoke.py --only-surface`` runs phases 1, 2 and
    13 alone.
 
-After each of phases 4-12 the CUDA graphs it captured and replayed are
-printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2, the
-preintegration checks of phase 3 and phase 7's solve and graph checks.
+14. the LM as replayed CUDA graphs (``solvers/lm.py``, ``solvers/compiled.py``):
+   the slice's solve (which must repeat ``SLICE_BEFORE``) and the same
+   slice with the CG reduced solve, the 1k solve (also read every
+   ``LM_BLOCKS_1K`` replays, with no new capture), the 2000-pose banded
+   survey from their initial values, each graphed (one LM step's graph,
+   replayed ``LM_BLOCK`` times between reads) against eager blocks of
+   ``LM_BLOCK`` and of one step, bit for bit (values and statistics), with
+   its host reads per solve (at most ``ceil(iterations / LM_BLOCK) + 1``),
+   captures, replays, host ms per iteration and the device's busy share of
+   one graphed solve; and the online window step of phase 8's pass (c),
+   graphed against eager, bit for bit, with no capture and no LM host
+   read. Phase 8 checks that the device-resident passes capture nothing
+   on or after the first steady keyframe and that their window LM reads
+   nothing on the host.
+
+After each of phases 4-12 and 14 the CUDA graphs it captured and replayed
+are printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2,
+the preintegration checks of phase 3, phase 7's solve and graph checks and
+phase 14 on inputs made for it (the slice's front end and solve, the
+2000-pose survey at its initial values, phase 8's pass (c)).
 
 The last two lines of standard output are one JSON object with the kernel
 records, then ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -248,6 +265,10 @@ IMU_TANGENT_ROWS = 24
 # layout: the arithmetic is unchanged, so the solve must repeat them.
 SLICE_BEFORE = (83, 0.07104358822107315)
 FP64_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores (data sheet)
+# Phase 14: replays of the graphed LM step between host reads, timed on the
+# 1k solve besides LM_BLOCK (each step after the stop costs a whole
+# iteration of device time).
+LM_BLOCKS_1K = (2, 8)
 # Phase 8: the online stream's first seconds (5 keyframes per second), the
 # window, and which steady keyframe goes under the profiler.
 ONLINE_SECONDS = 4.0
@@ -798,12 +819,15 @@ def compiled_1k(one_k: dict) -> dict:
 
 
 def log_graphs(label: str) -> dict:
-    """Print and reset the CUDA-graph captures and replays since the last
-    call (per function)."""
+    """Print and reset the CUDA-graph captures, replays, host reads of the
+    LM's blocks and host ms of the captures (warm-up included) since the
+    last call (per function)."""
     from uslam_tpu_torch.solvers import compiled
 
-    out = {"captures": dict(compiled.captures), "replays": dict(compiled.replays)}
-    log(f"  CUDA graphs, {label}: captures {out['captures']}, replays {out['replays']}")
+    out = {"captures": dict(compiled.captures), "replays": dict(compiled.replays),
+           "reads": dict(compiled.reads), "capture_ms": dict(compiled.capture_ms)}
+    log(f"  CUDA graphs, {label}: captures {out['captures']}, replays {out['replays']}, "
+        f"host reads {out['reads']}, capture ms {out['capture_ms']}")
     compiled.reset_counts()
     return out
 
@@ -1262,9 +1286,11 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
 
     online = OnlineSlam(cfg, window=ONLINE_WINDOW, solve_during_fill=False, device="cuda", **mode)
     call_ms, profiled = {}, None
-    # CUDA-graph captures before the second steady keyframe: the later ones
-    # replay the graphs the first steady keyframe captured.
-    captures_at = None
+    # CUDA-graph captures and LM host reads up to the first marginalization
+    # (keyframe ONLINE_WINDOW): the device-resident paths capture the steady
+    # window step there, so no steady keyframe captures, and their window LM
+    # reads nothing on the host.
+    captures_at = reads_at = None
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for kind, t, i in events:
@@ -1283,13 +1309,15 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
             online.add_stereo_frame(t, left[i], right[i])
             if online.keyframes > k:
                 call_ms[k] = (time.perf_counter() - ts) * 1e3
-        if captures_at is None and online.keyframes == ONLINE_WINDOW + 2:
+        if captures_at is None and online.keyframes == ONLINE_WINDOW + 1:
             captures_at = sum(compiled.captures.values())
+            reads_at = sum(compiled.reads.values())
     online.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     steady_captures = sum(compiled.captures.values()) - captures_at
+    steady_reads = sum(compiled.reads.values()) - reads_at
     traj = online.trajectory()
     n = len(traj)
     # Steady state: from the second marginalization on (keyframe
@@ -1311,14 +1339,20 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
         "lm_iters": float(np.median(iters)) if iters else float("nan"),
         "ate": ate_rmse(traj, gt), "ate_odom": ate_rmse(odom, gt), "profiled": profiled,
         "captures": dict(compiled.captures), "steady_captures": steady_captures,
+        "steady_reads": steady_reads, "first_marginal_ms": call_ms.get(ONLINE_WINDOW),
+        "max_ms": max(call_ms.values()), "max_at": max(call_ms, key=call_ms.get),
     }
     log(f"online pass {label}: {out['keyframes']} keyframes ({out['steady']} steady, one more "
         f"profiled) in {wall!r} s = {out['keyframes'] / wall!r} keyframes/s; steady ms per "
         f"keyframe median {out['median_ms']!r}, p90 {out['p90_ms']!r}; launches {launches}")
+    log(f"  keyframe {ONLINE_WINDOW} (the first marginalization, where the device paths "
+        f"capture the window step): {out['first_marginal_ms']!r} ms; the slowest timed "
+        f"keyframe {out['max_ms']!r} ms (keyframe {out['max_at']})")
     log(f"  steady split, medians (ms): {split}; LM iterations, median {out['lm_iters']!r} "
         f"(max {max(iters) if iters else None})")
     log(f"  CUDA graphs: captures so far in the phase {out['captures']}, {steady_captures} of "
-        f"them after the first steady keyframe; preintegrate launches "
+        f"them on or after the first steady keyframe; LM host reads in the steady keyframes "
+        f"{steady_reads}; preintegrate launches "
         f"{launches['preintegrate']} ({launches['preintegrate'] / online.keyframes!r} per "
         f"keyframe)")
     log(f"  ATE vs ground truth {out['ate']!r} m; DVL odometry {out['ate_odom']!r} m "
@@ -1332,6 +1366,21 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
     return out
 
 
+def online_inputs(seq) -> tuple:
+    """The stream's messages up to ONLINE_SECONDS and its frames as uint8,
+    as a camera gives them: (events, left, right)."""
+    import numpy as np
+
+    events = online_events(seq, ONLINE_SECONDS)
+    frames = sorted({i for kind, _, i in events if kind == "frame"})
+    left = {i: np.clip(seq.images_left[i], 0, 255).astype(np.uint8) for i in frames}
+    right = {i: np.clip(seq.images_right[i], 0, 255).astype(np.uint8) for i in frames}
+    log(f"online stream: {ONLINE_SECONDS} s, {len(frames)} stereo frames "
+        f"{left[frames[0]].shape} uint8, {len(events)} messages; window {ONLINE_WINDOW}, "
+        f"solve_during_fill=False, max_update_iters=4")
+    return events, left, right
+
+
 def online_phase(seq, cfg) -> dict:
     """Phase 8: the first ONLINE_SECONDS of the phase-3 dive streamed
     through OnlineSlam on the card: (a) the host smoother with the
@@ -1340,14 +1389,7 @@ def online_phase(seq, cfg) -> dict:
     import numpy as np
 
     t_phase = time.perf_counter()
-    events = online_events(seq, ONLINE_SECONDS)
-    frames = sorted({i for kind, _, i in events if kind == "frame"})
-    # uint8 frames, as a camera gives them.
-    left = {i: np.clip(seq.images_left[i], 0, 255).astype(np.uint8) for i in frames}
-    right = {i: np.clip(seq.images_right[i], 0, 255).astype(np.uint8) for i in frames}
-    log(f"online stream: {ONLINE_SECONDS} s, {len(frames)} stereo frames "
-        f"{left[frames[0]].shape} uint8, {len(events)} messages; window {ONLINE_WINDOW}, "
-        f"solve_during_fill=False, max_update_iters=4")
+    events, left, right = online_inputs(seq)
     a = online_pass("(a) host smoother", cfg, seq, events, left, right)
     g, vals = a["online"].smoother._window_graph()
     from uslam_tpu_torch.geometry.camera import StereoCamera
@@ -1384,8 +1426,10 @@ def online_phase(seq, cfg) -> dict:
         checks[f"online {name}: at least 8 steady keyframes"] = p["steady"] >= 8
     checks["online: keyframes equal across passes"] = len({p["keyframes"] for p in passes}) == 1
     for p in (b, c):
-        checks[f"online {p['label']}: no CUDA-graph capture after the first steady keyframe"] = (
-            p["steady_captures"] == 0)
+        checks[f"online {p['label']}: no CUDA-graph capture on or after the first steady "
+               "keyframe"] = p["steady_captures"] == 0
+        checks[f"online {p['label']}: the window LM reads nothing on the host"] = (
+            p["steady_reads"] == 0)
     checks["online (b): no pending keyframe after flush()"] = b["online"]._pending is None
     checks["online (b): fused steps ran"] = any(e.get("pipelined") for e in b["online"].timings)
     checks[f"online (b) within {ONLINE_DIVERGENCE_M} m of (a)"] = div[b["label"]] < ONLINE_DIVERGENCE_M
@@ -1604,7 +1648,7 @@ def survey_solve(n_poses: int) -> dict:
         log(f"  ALERT survey {n_poses}: polished ATE {ate_pol!r} m > final ATE {ate_final!r} m "
             "(observability-limited)")
     out = {
-        "n": n, "graph": graph, "values": r.values, "cfg": cfg, "cost": cost,
+        "n": n, "graph": graph, "initial": initial, "values": r.values, "cfg": cfg, "cost": cost,
         "preint_ms": preint_ms, "preint_err_ms": preint_err_ms, "preint24_ms": preint24_ms,
         "checks": {
             **frame_sum_check(graph.stereo, n, f"survey {n_poses}"),
@@ -1641,7 +1685,7 @@ def survey_phase() -> tuple:
             rel = banded_vs_schur(res["graph"], res["values"], res["cfg"], f"survey {n_poses}")
             checks[f"survey {n_poses}: banded step = Schur step (relative < {BANDED_STEP_RTOL})"] = (
                 rel < BANDED_STEP_RTOL)
-            first = {k: res[k] for k in ("graph", "values", "cfg")}
+            first = {k: res[k] for k in ("graph", "initial", "values", "cfg")}
         del res
         torch.cuda.empty_cache()
     # A short survey seen to 15 m: every track spans nearly the whole run
@@ -2829,6 +2873,191 @@ def surface_phase(cfg) -> dict:
     return {"checks": checks, "launches": launches}
 
 
+# ---- phase 14: the LM as replayed CUDA graphs --------------------------------
+
+
+def _values_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg,
+                  blocks: tuple = ()) -> dict:
+    """One LM solve graphed (``optimize_lm`` on the card: one step's CUDA
+    graph replayed ``LM_BLOCK`` times between reads of "stopped") against
+    the same solve in eager blocks of ``LM_BLOCK`` and of one step (the
+    former host loop's reads): values and statistics bit for bit; host
+    reads, captures and replays; host ms per iteration (synchronized; the
+    graphed solve after its capture); device busy share of one graphed
+    solve (torch.profiler's device time, device activity only, over the
+    unprofiled solve's wall). ``blocks``: other replay counts between
+    reads, graphed with the same step's graph (no new capture), timed with
+    the masked steps they run."""
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers.lm import LM_BLOCK, optimize_lm
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = optimize_lm(graph, initial, cam, *sig, solver_cfg, huber, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    compiled.reset_counts()
+    (v_first, s_first), first_ms = run()
+    captured = dict(compiled.captures)
+    first_capture_ms = dict(compiled.capture_ms)
+    compiled.reset_counts()
+    (v_g, s_g), graphed_ms = run()
+    reads = compiled.reads.get("lm_step", 0) + 1           # + the statistics' read
+    replays = compiled.replays.get("lm_step", 0)
+    recaptured = sum(compiled.captures.values())
+    (v_e, s_e), eager_ms = run(graphed=False, block=LM_BLOCK)
+    (v_1, s_1), eager1_ms = run(graphed=False, block=1)
+    prof = profile_call(lambda: optimize_lm(graph, initial, cam, *sig, solver_cfg, huber))
+    it = s_g.iterations
+    same = (s_g == s_first == s_e == s_1
+            and all(_values_equal(v_g, v) for v in (v_first, v_e, v_1)))
+    bound = -(-it // LM_BLOCK) + 1
+    log(f"  {label}: {it} LM iterations, final error {s_g.final_error!r}, converged "
+        f"{s_g.converged}; graphed = eager blocks of {LM_BLOCK} = eager blocks of 1, values and "
+        f"statistics bit for bit: {same}")
+    log(f"    host reads per solve {reads} (bound ceil({it}/{LM_BLOCK}) + 1 = {bound}; eager "
+        f"blocks of 1: 1 per iteration + 1 = {it + 1}); step replays {replays} "
+        f"({replays - it} masked steps); captures {captured} on the first solve (host ms "
+        f"{first_capture_ms}), {recaptured} on the second")
+    log(f"    host ms per iteration: graphed {graphed_ms / it!r} (first solve, with its capture, "
+        f"{first_ms / it!r}), eager blocks of {LM_BLOCK} {eager_ms / it!r}, eager blocks of 1 "
+        f"{eager1_ms / it!r}; solve ms graphed {graphed_ms!r}, eager {eager1_ms!r}")
+    # The profiler's own cost grows with the kernels it records (~10^5 in a
+    # solve), so the busy share divides the profiled device time by the
+    # unprofiled graphed solve's wall.
+    busy = prof["device_ms"] / graphed_ms
+    log(f"    one graphed solve under torch.profiler: device {prof['device_ms']!r} ms in "
+        f"{prof['kernels']} kernels and {prof['copies']} copies: busy {busy!r} of the unprofiled "
+        f"graphed solve (of the profiled one's host wall {prof['wall_ms']!r} ms: {prof['busy']!r})")
+    sweep = {}
+    for k in blocks:
+        compiled.reset_counts()
+        (v_k, s_k), ms = run(block=k)
+        rep = compiled.replays.get("lm_step", 0)
+        sweep[k] = {"ms": ms, "masked": rep - it, "reads": compiled.reads.get("lm_step", 0) + 1,
+                    "same": s_k == s_g and _values_equal(v_k, v_g),
+                    "captures": sum(compiled.captures.values())}
+        log(f"    {k} replays per read: solve {ms!r} ms ({ms / it!r} per iteration), {rep} "
+            f"replays, {rep - it} masked steps, {sweep[k]['reads']} host reads, "
+            f"{sweep[k]['captures']} captures, bit-identical {sweep[k]['same']}")
+    checks = {
+        f"LM {label}: graphed = eager blocks (of {LM_BLOCK} and of 1), bit for bit": same,
+        f"LM {label}: host reads per solve <= ceil(iterations / {LM_BLOCK}) + 1": reads <= bound,
+        f"LM {label}: no capture on a second solve of the same shapes": recaptured == 0,
+    }
+    for k, r in sweep.items():
+        checks[f"LM {label}: {k} replays per read bit-identical, no new capture"] = (
+            r["same"] and r["captures"] == 0)
+    return {"checks": checks, "iterations": it, "final_error": s_g.final_error, "reads": reads,
+            "graphed_ms": graphed_ms, "eager_ms": eager_ms, "eager1_ms": eager1_ms,
+            "busy": busy, "sweep": sweep}
+
+
+def window_graph_check(online_c, cfg) -> dict:
+    """The device-resident window step of phase 8's pass (c) on its last
+    window: graphed (the "window_graph" and "lm_step" graphs the smoother
+    captured) against eager, bit for bit; the replays' host reads and host
+    ms."""
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers.fixed_lag import upload, window_step_core
+
+    sm = online_c.smoother
+    rec = upload(sm._frame_record_arrays(sm._frames[-1]), "cuda")
+    args = (sm._dev_state, rec, sm.cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma,
+            cfg.imu.gravity, sm.steady_solver)
+    compiled.reset_counts()
+    t_g, graphed = _median_ms(lambda: window_step_core(*args))
+    counts = (dict(compiled.captures), dict(compiled.replays), dict(compiled.reads))
+    t_e, eager = _median_ms(lambda: window_step_core(*args, graphed=False))
+    leaves_g = [*graphed[0], graphed[1], *graphed[2]]
+    leaves_e = [*eager[0], eager[1], *eager[2]]
+    same = all(torch.equal(a, b) for a, b in zip(leaves_g, leaves_e))
+    log(f"  online window step (pass (c)'s last window, max_iterations "
+        f"{sm.steady_solver.max_iterations}, {int(graphed[2].iterations)} LM iterations): "
+        f"graphed = eager bit for bit: {same}; host ms graphed {t_g!r}, eager {t_e!r} (median "
+        f"of 3); captures {counts[0]}, replays {counts[1]}, LM host reads {counts[2]}")
+    steps = 3 * sm.steady_solver.max_iterations
+    return {"checks": {"online window step: graphed = eager, bit for bit": same,
+                       f"online window step: replays (window_graph 3, lm_step {steps}), no "
+                       "capture, no LM host read":
+                       counts[0] == {} and counts[2] == {}
+                       and counts[1].get("window_graph") == 3
+                       and counts[1].get("lm_step") == steps},
+            "graphed_ms": t_g, "eager_ms": t_e}
+
+
+def graph_cache_summary() -> dict:
+    """Per graph name: the cached entries and the MiB of their static input
+    buffers (the memory each entry keeps outside the shared pool)."""
+    from uslam_tpu_torch.solvers import compiled
+
+    out: dict = {}
+    for key, entry in compiled._CACHE.items():
+        name = key[1] if key[0] == "loop" else key[0]
+        bufs = entry.inputs[0] + entry.inputs[1] if key[0] == "loop" else entry.inputs
+        n, mib = out.get(name, (0, 0.0))
+        out[name] = (n + 1, mib + sum(b.numel() * b.element_size() for b in bufs) / 2**20)
+    return out
+
+
+def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
+    """Phase 14: the LM as replayed CUDA graphs, against eager blocks, on
+    the slice (which must repeat ``SLICE_BEFORE``) and the slice with the
+    CG reduced solve, the 1k solve (also read every ``LM_BLOCKS_1K``
+    replays), the 2000-pose banded survey and the online window step."""
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.pipeline import banded_solver_config
+
+    import torch
+
+    t_phase = time.perf_counter()
+    log("the LM as replayed CUDA graphs (graphed against eager blocks):")
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    cam = StereoCamera.from_config(cfg.camera, device="cuda")
+    g_np, v_np = pack_sequence(seq, cfg)[:2]
+    slice_ = lm_graph_pair("slice", to_port(g_np, "cuda"), to_port(v_np, "cuda"), cam, sig,
+                           cfg.noise.stereo_huber_delta, cfg.solver)
+    checks = dict(slice_["checks"])
+    checks[f"LM slice: {SLICE_BEFORE} iterations and final error, as before"] = (
+        (slice_["iterations"], slice_["final_error"]) == SLICE_BEFORE)
+    # CG inside a captured step runs all its blocks, the frozen ones
+    # leaving its state as it is; eagerly it stops at its test.
+    cg = lm_graph_pair("slice, CG reduced solve", to_port(g_np, "cuda"), to_port(v_np, "cuda"),
+                       cam, sig, cfg.noise.stereo_huber_delta,
+                       dataclasses.replace(cfg.solver, reduced_solver="cg"))
+    checks.update(cg["checks"])
+    c1k = one_k["cfg"]
+    r1k = lm_graph_pair("1k", one_k["result"].graph, to_port(one_k["initial"], "cuda"),
+                        StereoCamera.from_config(c1k.camera, device="cuda"), sig,
+                        c1k.noise.stereo_huber_delta, c1k.solver, blocks=LM_BLOCKS_1K)
+    checks.update(r1k["checks"])
+    cs = survey["cfg"]
+    rs = lm_graph_pair("survey 2000 (banded)", survey["graph"], survey["initial"],
+                       StereoCamera.from_config(cs.camera, device="cuda"), sig,
+                       cs.noise.stereo_huber_delta, banded_solver_config(cs.solver, survey["graph"]))
+    checks.update(rs["checks"])
+    if online_c is not None:
+        checks.update(window_graph_check(online_c, cfg)["checks"])
+    log(f"  graph cache (it never evicts): {graph_cache_summary()}; device memory reserved "
+        f"{torch.cuda.memory_reserved() / 2**20!r} MiB")
+    log(f"LM graph phase: {time.perf_counter() - t_phase!r} s")
+    return {"checks": checks, "slice": slice_, "cg": cg, "1k": r1k, "survey": rs}
+
+
 def finish_alone(checks: dict, device_name: str) -> int:
     """The end of a run of one phase: its checks, then the last line."""
     import torch
@@ -2877,18 +3106,38 @@ def only_parallel(device_name: str) -> int:
 
 def only_compiled(device_name: str) -> int:
     """``--only-compiled``: the preintegration kernel against its plain
-    version and oracle (phase 3's part), then the 1k solve and its graph
-    checks and per-iteration times (phase 7's part)."""
+    version and oracle (phase 3's part), the 1k solve and its graph checks
+    and per-iteration times (phase 7's part), then phase 14 on inputs made
+    for it: the slice's solve (the rendered dive through ``run_sequence``),
+    the 2000-pose survey at its initial values and phase 8's pass (c)."""
     from uslam_tpu_torch.config import UslamConfig
     from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import run_sequence
 
-    check_preintegrate(preintegrate_cases(UslamConfig()))
+    cfg = UslamConfig()
+    check_preintegrate(preintegrate_cases(cfg))
     kernels.reset_launch_counts()
     one_k = load_1k()
     log(f"1k solve: {one_k['result'].metrics['lm_iterations']} LM iterations in "
         f"{one_k['result'].metrics['solve_seconds']!r} s; launches {dict(kernels.launch_counts)}")
     log_graphs("the 1k solve")
     checks = compiled_1k(one_k)["checks"]
+    seq = generate_synthetic_sequence(SyntheticSpec(duration=20.0, odom_drift_rate=0.05),
+                                      cfg.camera, render_images=True, omit_features=True)
+    m = run_sequence(seq, cfg, device="cuda").metrics
+    log(f"slice: {m['lm_iterations']} LM iterations, error {m['final_error']!r}, solve "
+        f"{m['solve_seconds']!r} s")
+    s_seq, s_cfg = survey_problem(SURVEY_POSES[0])
+    g_np, v_np = pack_sequence(s_seq, s_cfg)[:2]
+    survey = {"graph": to_port(g_np, "cuda"), "initial": to_port(v_np, "cuda"), "cfg": s_cfg}
+    c = online_pass("(c) device-resident", cfg, seq, *online_inputs(seq), device_resident=True)
+    checks["online (c): no CUDA-graph capture on or after the first steady keyframe"] = (
+        c["steady_captures"] == 0)
+    checks["online (c): the window LM reads nothing on the host"] = c["steady_reads"] == 0
+    checks.update(lm_graph_phase(seq, cfg, one_k, survey, c["online"])["checks"])
     return finish_alone(checks, device_name)
 
 
@@ -3084,6 +3333,8 @@ def main() -> int:
     log(f"  run_sequence wall {wall!r} s")
     traj = result.trajectory
     checks = {
+        f"slice: {SLICE_BEFORE} LM iterations and final error, as before": (
+            (m["lm_iterations"], m["final_error"]) == SLICE_BEFORE),
         "fast_harris launched once per level per chunk": launches["fast_harris"] == n_chunks * levels,
         "hamming launched once per chunk": launches["hamming"] == n_chunks,
         "preintegrate launched by the solve": launches["preintegrate"] > 0,
@@ -3169,6 +3420,11 @@ def main() -> int:
     # ---- 13. the public surface: extract_orb, hamming_distance_matrix, ... ---
     surface = surface_phase(cfg)
     checks.update(surface["checks"])
+
+    # ---- 14. the LM as replayed CUDA graphs, against eager blocks ----------
+    checks.update(lm_graph_phase(seq, cfg, one_k, survey_2k, online["passes"][2]["online"])[
+        "checks"])
+    log_graphs("phase 14 (the graphed LM)")
 
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules

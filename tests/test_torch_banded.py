@@ -9,7 +9,8 @@ Tolerances, with their reasons:
   against the port's own Schur step (the JAX package's banded-vs-Schur
   tolerance is 1e-8 on the norm); g.delta 1e-9 relative;
 - the Thomas factor, factor-apply and apply: 1e-9 relative to the largest
-  entry;
+  entry; on a panel that is not positive definite, the same finite panels
+  as the JAX package (a failed panel is NaN, and so are the later ones);
 - band and window measurements: exact (same host numpy);
 - a float32 linearization of the single-observation graph: the banded step
   against the float64 dense step of it, 1e-6 relative (its one float32
@@ -55,7 +56,7 @@ from uslam_tpu_torch.interop import config_to_port, to_port
 from uslam_tpu_torch.pipeline import AUVSlam
 from uslam_tpu_torch.solvers import banded, dense, schur
 from uslam_tpu_torch.solvers.linearize import linearize_graph
-from uslam_tpu_torch.solvers.lm import optimize_lm
+from uslam_tpu_torch.solvers.lm import check_finite, optimize_lm
 from uslam_tpu_torch.solvers.polish import polish_f64
 
 torch.set_num_threads(1)
@@ -122,29 +123,109 @@ def test_banded_step_matches_jax_and_schur_f64(graphs, case):
 
 
 def test_thomas_sweeps_match_jax_and_raise_on_failed_panel():
+    """A panel that is not positive definite: the factor holds NaN where
+    the JAX package's does (the failed panel and the later ones) and
+    nothing raises; the raise comes only from ``debug_nans``' check of the
+    factor (test_failed_panel_raises_only_under_debug_nans)."""
     rng = np.random.default_rng(4)
     npan, d, k = 4, 12, 3
     A = rng.standard_normal((npan, d, d))
     D = A @ A.transpose(0, 2, 1) + 4 * d * np.eye(d)
     O = rng.standard_normal((npan - 1, d, d))
     rhs = rng.standard_normal((npan, d, k))
+    bad = D.copy()
+    bad[2] = -bad[2]    # panel 2 not positive definite
     with jax.enable_x64(True):
         L_ref, x_ref = jax.device_get(jbanded.block_tridiag_factor_apply(D, O, rhs))
         L2_ref = jax.device_get(jbanded.block_tridiag_factor(D, O))
         y_ref = jax.device_get(jbanded.block_tridiag_apply(L2_ref, O, 2 * rhs))
+        Lb_ref = jax.device_get(jbanded.block_tridiag_factor(bad, O))
+        Lbb_ref, xb_ref = jax.device_get(jbanded.block_tridiag_factor_apply(bad, O, rhs))
     Dt, Ot, rt = (torch.tensor(a) for a in (D, O, rhs))
     L, x = banded.block_tridiag_factor_apply(Dt, Ot, rt)
     L2 = banded.block_tridiag_factor(Dt, Ot)
     y = banded.block_tridiag_apply(L2, Ot, 2 * rt)
     for ours, ref in ((L, L_ref), (x, x_ref), (L2, L2_ref), (y, y_ref)):
         assert _rel(ours.numpy(), ref) < 1e-9
-    # A panel that is not positive definite raises; nothing falls back.
-    bad = Dt.clone()
-    bad[2] = -bad[2]
-    with pytest.raises(torch.linalg.LinAlgError, match=r"panel\(s\) \[2\]"):
-        banded.block_tridiag_factor(bad, Ot)
-    with pytest.raises(torch.linalg.LinAlgError):
-        banded.block_tridiag_factor_apply(bad, Ot, rt)
+    # A panel that is not positive definite gives NaN, as in the JAX
+    # package, and the NaN spreads to the later panels; nothing raises.
+    Lb = banded.block_tridiag_factor(torch.tensor(bad), Ot)
+    Lbb, xb = banded.block_tridiag_factor_apply(torch.tensor(bad), Ot, rt)
+
+    def finite(a):
+        return np.isfinite(np.asarray(a)).all(axis=(-2, -1)).tolist()
+
+    assert finite(Lb_ref) == finite(Lbb_ref) == [True, True, False, False]
+    assert finite(Lb) == finite(Lbb) == finite(Lb_ref)
+    assert finite(xb) == finite(xb_ref)
+    assert _rel(Lb[:2].numpy(), Lb_ref[:2]) < 1e-9
+    with pytest.raises(FloatingPointError, match="banded factorization"):
+        check_finite("banded factorization", Lb)
+
+
+def _failing_banded_case(survey, solver="banded"):
+    """The survey in float64 with identity damping at a negative lambda:
+    every damped system is indefinite, so the banded solve's first panel
+    (the Schur solve's reduced Cholesky) fails."""
+    cfg, graph, _, g64, v64 = survey
+    tcfg = config_to_port(cfg)
+    kw = dict(band_width=banded.measure_band_width(to_port(graph.stereo, "cpu")))
+    if solver == "banded":
+        kw["reduced_solver"] = "banded"
+    lm_cfg = dataclasses.replace(tcfg.solver, damping_mode="identity", lambda_initial=-1e3,
+                                 max_iterations=2, **kw)
+    ct = tcam.StereoCamera.from_config(tcfg.camera, device="cpu", dtype=torch.float64)
+    return to_port(g64, "cpu"), to_port(v64, "cpu"), ct, lm_cfg
+
+
+def test_failed_panel_raises_only_under_debug_nans(survey):
+    g, v, ct, lm_cfg = _failing_banded_case(survey)
+    lin = linearize_graph(g, v, ct, *SURVEY_SIGMAS)
+    n, m = v.num_poses, v.num_landmarks
+    kw = dict(band_w=lm_cfg.band_width, jitter=1e-7)
+    delta = banded.solve_schur_banded(lin, g.stereo, n, m, -1e3, **kw)
+    assert not bool(torch.isfinite(delta).any())
+    with pytest.raises(FloatingPointError, match="banded factorization"):
+        banded.solve_schur_banded(lin, g.stereo, n, m, -1e3, check=check_finite, **kw)
+    with pytest.raises(FloatingPointError, match="banded factorization"):
+        optimize_lm(g, v, ct, *SURVEY_SIGMAS, dataclasses.replace(lm_cfg, debug_nans=True))
+
+
+def test_lm_rejects_a_failed_banded_step(survey):
+    """A banded step whose panel fails is rejected and lambda multiplied,
+    as on the port's Schur path (and in the JAX package, whose factor gives
+    the same NaN panels: test_thomas_sweeps_match_jax_and_raise_on_failed_panel;
+    its LM's NaN guard: tests/test_torch_lm_device.py)."""
+    g, v, ct, lm_cfg = _failing_banded_case(survey)
+    _, stats = optimize_lm(g, v, ct, *SURVEY_SIGMAS, lm_cfg)
+    _, ref = optimize_lm(g, v, ct, *SURVEY_SIGMAS,
+                         _failing_banded_case(survey, solver="schur")[3])
+    assert stats == ref
+    assert stats.iterations == 2 and not stats.converged
+    assert stats.final_error == stats.initial_error
+    assert stats.final_lambda == -1e3 * lm_cfg.lambda_factor ** 2
+
+
+def test_bias_solve_of_a_singular_system_matches_jax():
+    """The banded solve's bias system goes through ``torch.linalg.solve_ex``
+    (no host read, no raise). Exactly singular, it gives JAX's
+    ``jnp.linalg.solve`` values (NaN and Inf in the same places); rank
+    deficient only in exact arithmetic, LAPACK's LU in the port finds a
+    tiny pivot and returns huge finite values where JAX's gives NaN and
+    -Inf (ROADMAP C8). The LM rejects the step either way."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((6, 5))
+    near = A @ A.T
+    b = rng.standard_normal(6)
+    exact = np.diag([1.0, 1.0, 1.0, 1.0, 1.0, 0.0])
+    with jax.enable_x64(True):
+        ref_exact, ref_near = (np.asarray(jnp.linalg.solve(S, b)) for S in (exact, near))
+    ours_exact, ours_near = (torch.linalg.solve_ex(torch.tensor(S), torch.tensor(b))[0].numpy()
+                             for S in (exact, near))
+    np.testing.assert_array_equal(ours_exact, ref_exact)
+    assert not np.isfinite(ref_exact).all()
+    assert not np.isfinite(ref_near).all()
+    assert np.isfinite(ours_near).all() and np.abs(ours_near).max() > 1e12
 
 
 def test_measurements_match_jax_with_masked_slots():

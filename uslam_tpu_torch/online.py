@@ -277,29 +277,30 @@ class OnlineSlam:
             "fused": True,
             "tracker": "orb",        # the fused step matches by descriptors
         }
+        packed = step_output(outputs, stats)
         if self.pipelined:
             # Start the copy of keyframe k's outputs, THEN harvest k-1, so
             # that k's work is queued before the host waits on k-1's copy.
             if self.device.type == "cuda":
-                host = torch.empty(outputs.shape, dtype=outputs.dtype, pin_memory=True)
-                host.copy_(outputs, non_blocking=True)
+                host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                host.copy_(packed, non_blocking=True)
                 copied = torch.cuda.Event()
                 copied.record()
             else:
-                host, copied = outputs, None
+                host, copied = packed, None
             t2 = time.perf_counter()
             self._harvest_pending()
             t3 = time.perf_counter()
             entry = dict(base, dispatch_ms=(t2 - t1) * 1e3, harvest_wait_ms=(t3 - t2) * 1e3,
                          smoother_ms=(t3 - t0) * 1e3, total_ms=(t3 - t0) * 1e3, pipelined=True)
-            self._pending = (host, copied, stats, imu_samples, twist, entry)
+            self._pending = (host, copied, imu_samples, twist, entry)
             self.timings.append(entry)
             self.keyframes += 1
             return self._last_values
         self._harvest_pending()  # a pipelined stream that changed modes
         synchronize(self.device)
         t2 = time.perf_counter()
-        fetched = unpack_step_outputs(step_output(outputs.cpu().numpy(), stats))
+        fetched = unpack_step_outputs(packed.cpu().numpy())
         t3 = time.perf_counter()
         values = self._finish_keyframe(fetched, imu_samples, twist)
         entry = dict(base, solve_ms=(t2 - t1) * 1e3, fetch_ms=(t3 - t2) * 1e3,
@@ -335,12 +336,12 @@ class OnlineSlam:
         the host mirror."""
         if self._pending is None:
             return
-        host, copied, stats, imu_samples, twist, entry = self._pending
+        host, copied, imu_samples, twist, entry = self._pending
         self._pending = None
         th = time.perf_counter()
         if copied is not None:
             copied.synchronize()
-        fetched = unpack_step_outputs(step_output(host.numpy(), stats))
+        fetched = unpack_step_outputs(host.numpy())
         entry["harvest_ms"] = (time.perf_counter() - th) * 1e3
         entry["lm_iters"] = int(fetched[4].iterations)
         self._finish_keyframe(fetched, imu_samples, twist)

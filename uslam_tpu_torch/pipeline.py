@@ -65,14 +65,21 @@ class SlamResult:
         return trajectory_from_values(self.values)
 
 
+def require_full_float32(device: torch.device) -> None:
+    """The normal equations must be solved in full float32 (the JAX package
+    pins matmul precision to 'highest'): TF32 matmuls on the card would
+    keep ~3 decimal digits. Raises if they are allowed."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False")
+
+
 def run_solver(graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
                solver_cfg: SolverConfig, huber_delta=None):
-    """LM entry. The normal equations must be solved in full float32 (the
-    JAX package pins matmul precision to 'highest'): TF32 matmuls on the
-    card would keep ~3 decimal digits. ``solver_cfg.debug_nans`` checks
-    every LM stage for non-finite values (:mod:`uslam_tpu_torch.solvers.lm`)."""
-    if initial.pose_trans.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False")
+    """LM entry (:func:`uslam_tpu_torch.solvers.lm.optimize_lm`: replayed
+    CUDA graphs on the card), in full float32 (:func:`require_full_float32`).
+    ``solver_cfg.debug_nans`` checks every LM stage for non-finite values
+    (:mod:`uslam_tpu_torch.solvers.lm`)."""
+    require_full_float32(initial.pose_trans.device)
     return optimize_lm(
         graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg, huber_delta
     )

@@ -1,7 +1,7 @@
 """Nonlinear least-squares solvers (port of ``uslam_tpu.solvers``): the
 linearization, the dense and Schur reduced solves, the Levenberg-Marquardt
-host loop, marginal covariances; the banded, fixed-lag and polish solvers
-in their modules.
+loop (replayed CUDA graphs on the card), marginal covariances; the banded,
+fixed-lag and polish solvers in their modules.
 
 The public names are the JAX package's ``uslam_tpu.solvers``. They load on
 first use, so importing the subpackage imports no torch module.

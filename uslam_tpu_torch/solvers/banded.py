@@ -43,7 +43,8 @@ correction is added chunk by chunk with ``index_add_`` over distinct rows
 the pairwise fallback sums per frame by
 :func:`uslam_tpu_torch.solvers.bands.frame_sum` (JAX's
 ``_chunked_frame_sum``), in a fixed order for the same reason. A failed
-panel Cholesky raises.
+panel Cholesky gives NaN, as in the JAX package, and the LM rejects the
+step; the solve reads nothing back to the host, so a CUDA graph holds it.
 
 Sharded over landmarks (``group``), as :func:`solve_schur_banded` says:
 one all-reduce of the correction band, one all-gather of the landmark
@@ -66,7 +67,7 @@ from uslam_tpu_torch.solvers.bands import (
     frame_sum,
     observed_frames,
 )
-from uslam_tpu_torch.solvers.dense import inv3x3
+from uslam_tpu_torch.solvers.dense import cholesky_or_nan, inv3x3
 from uslam_tpu_torch.solvers.linearize import Linearization
 
 
@@ -309,32 +310,23 @@ def _panelize(band: torch.Tensor, P: int):
 # --------------------------------------------------------------------------
 
 
-def _raise_on_failed_panels(info: torch.Tensor) -> None:
-    """One host read after a sweep: raise if any panel's Cholesky failed."""
-    bad = torch.nonzero(info).flatten().tolist()
-    if bad:
-        raise torch.linalg.LinAlgError(
-            f"banded solve: the Cholesky factorization of panel(s) {bad} of "
-            f"{info.numel()} failed (Schur-complemented panel not positive definite)"
-        )
-
-
 def block_tridiag_factor(D, O):
     """Thomas forward factorization: the lower Cholesky factors L (Np, d, d)
     of the Schur-complemented diagonal panels t_k = D_k - O_{k-1}^T
     t_{k-1}^-1 O_{k-1}, with u = L_{k-1}^-1 O_{k-1} and t_k = D_k - u^T u
     (one triangular solve, one GEMM, one Cholesky per panel). D must be
-    SPD-damped; a failed panel raises after the sweep."""
+    SPD-damped. A panel whose Cholesky fails gets a NaN factor
+    (:func:`uslam_tpu_torch.solvers.dense.cholesky_or_nan`, the JAX
+    package's ``jnp.linalg.cholesky``), which spreads to the later panels
+    and to the step, so the LM rejects it; nothing is read back to the
+    host."""
     L = torch.empty_like(D)
-    info = []
     for k in range(D.shape[0]):
         t = D[k]
         if k:
             u = torch.linalg.solve_triangular(L[k - 1], O[k - 1], upper=False)
             t = t - u.T @ u
-        L[k], ik = torch.linalg.cholesky_ex(t)
-        info.append(ik)
-    _raise_on_failed_panels(torch.stack(info))
+        L[k] = cholesky_or_nan(t)
     return L
 
 
@@ -351,20 +343,17 @@ def block_tridiag_factor_apply(D, O, rhs):
     """Factorization fused with the forward substitution of ``rhs`` (Np, d,
     K), then the backward sweep. Returns (L, x); the same as
     :func:`block_tridiag_factor` followed by :func:`block_tridiag_apply`
-    with one sweep fewer."""
+    with one sweep fewer (a failed panel: NaN, as there)."""
     L = torch.empty_like(D)
     u = torch.empty_like(rhs)
-    info = []
     for k in range(D.shape[0]):
         t, r = D[k], rhs[k]
         if k:
             w = torch.linalg.solve_triangular(L[k - 1], O[k - 1], upper=False)
             t = t - w.T @ w
             r = r - O[k - 1].T @ u[k - 1]
-        L[k], ik = torch.linalg.cholesky_ex(t)
-        info.append(ik)
+        L[k] = cholesky_or_nan(t)
         u[k] = torch.cholesky_solve(r, L[k])
-    _raise_on_failed_panels(torch.stack(info))
     return L, _backward(L, u, O)
 
 
@@ -440,8 +429,8 @@ def solve_schur_banded(
     ``corr_lm_chunk`` landmarks in a window of that many frames (pass
     :func:`measure_corr_window`). Runs in float64 and returns the
     linearization's type (module docstring). ``check`` (the LM's
-    ``debug_nans``) is called on the banded reduction and on the reduced
-    solve.
+    ``debug_nans``) is called on the banded reduction, the panel factors (a
+    failed panel raises there) and the reduced solve.
 
     ``group``: landmark-sharded as in
     :func:`uslam_tpu_torch.solvers.schur.solve_schur` (this rank's slice of
@@ -519,16 +508,20 @@ def solve_schur_banded(
     bias_flat = bias_s.reshape(n * FRAME_DIM, BIAS_DIM)
     rhs = torch.cat([g_s.reshape(-1, 1), bias_flat], dim=1)
     L, X0 = block_tridiag_factor_apply(D, O, pad_rhs(rhs))
+    if check:
+        check("banded factorization", L)
     X = unpad(X0)
     X1, X2 = X[:, 0], X[:, 1:]
     S = bb_s + jitter * torch.eye(BIAS_DIM, dtype=dtype, device=dev) - bias_flat.T @ X2
-    y = torch.linalg.solve(S, gb_s - bias_flat.T @ X1)
+    # solve_ex: no host read of the LU's status; a singular S gives a
+    # non-finite step, which the LM rejects.
+    y = torch.linalg.solve_ex(S, gb_s - bias_flat.T @ X1)[0]
     x = X1 - X2 @ y
     for _ in range(refine_iters):
         hx, hb = _band_matvec(band_s, bias_s, bb_s, x.reshape(n, FRAME_DIM), y, n)
         rx = (g_s - hx).reshape(-1, 1)
         u = unpad(block_tridiag_apply(L, O, pad_rhs(rx)))[:, 0]
-        dy = torch.linalg.solve(S, gb_s - hb - bias_flat.T @ u)
+        dy = torch.linalg.solve_ex(S, gb_s - hb - bias_flat.T @ u)[0]
         x = x + (u - X2 @ dy)
         y = y + dy
     if check:

@@ -50,9 +50,14 @@ class CamBands(NamedTuple):
     gb: torch.Tensor      # (6,)
 
 
-def damping_scalars(damping, dtype: torch.dtype) -> tuple[float, float]:
+def damping_scalars(damping, dtype: torch.dtype):
     """(lambda, lambda + 1e-8), each rounded in the solve's float type as
-    the JAX package's device-side scalars are; exact as Python floats."""
+    the JAX package's device-side scalars are: Python floats (exact) for a
+    number, 0-d tensors of ``dtype`` for a tensor (the LM's lambda on the
+    device), the same bits either way."""
+    if isinstance(damping, torch.Tensor):
+        lam = damping.to(dtype)
+        return lam, lam + 1e-8
     f = np.float64 if dtype == torch.float64 else np.float32
     lam = f(damping)
     return float(lam), float(lam + f(1e-8))
@@ -70,7 +75,7 @@ def _add_head(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:1] + v, x[1:]])
 
 
-def _damp_diag(blk: torch.Tensor, lam: float, lam_floor: float, diag_damping: bool):
+def _damp_diag(blk: torch.Tensor, lam, lam_floor, diag_damping: bool):
     """LM damping on every diagonal entry of (..., d, d) blocks: Marquardt
     H + lam diag(H) + 1e-8 (the floor keeps padded zero rows nonsingular),
     or H + (lam + 1e-8) I."""

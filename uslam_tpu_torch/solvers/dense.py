@@ -198,6 +198,11 @@ def solve_dense_gn(
 ) -> torch.Tensor:
     """Solve (H + lambda I) delta = g, or (H + lambda diag(H)) with
     ``diag_damping`` (Marquardt), by the scaled Cholesky. A 1e-8 diagonal
-    floor keeps masked padding rows nonsingular."""
-    damp = damping * torch.diagonal(H) if diag_damping else damping
-    return scaled_cho_solve(_add_diag(H, damp + 1e-8), g, refine_iters, jitter)
+    floor keeps masked padding rows nonsingular. ``damping`` is a number or
+    a 0-d tensor (the LM's lambda on the device); lambda + 1e-8 is summed in
+    float64 either way and rounded once to H's type."""
+    if diag_damping:
+        damp = damping * torch.diagonal(H) + 1e-8
+    else:
+        damp = (damping.double() if isinstance(damping, torch.Tensor) else damping) + 1e-8
+    return scaled_cho_solve(_add_diag(H, damp), g, refine_iters, jitter)

@@ -12,8 +12,13 @@ prior (port of :mod:`uslam_tpu.solvers.fixed_lag`).
   device (landmark ids interned by sort and cumulative sum, with no host
   read), runs the LM, takes the dropped factors' marginal, PSD-projects it
   with ``torch.linalg.eigh``, rolls the state, and one packed output comes
-  back (one device-to-host copy). The LM's per-iteration error reads are
-  the only other host reads.
+  back (one device-to-host copy, the LM statistics included). On the card
+  the graph build and the LM step replay CUDA graphs keyed by the window's
+  shapes (the JAX package's ``_device_window_step`` is one program), with
+  no host read when ``max_iterations <= LM_BLOCK``; ``eigh`` checks its
+  status on the host, so it runs eagerly after them. The smoother
+  captures those graphs at its first marginalization, before the first
+  steady keyframe.
 - Fused (:func:`fused_keyframe_step`): the per-frame front end, id
   interning, triangulation and record assembly run on the device too, so
   the host uploads the uint8 stereo pair and a small record.
@@ -22,11 +27,10 @@ Approximations (the JAX package's, standard): marginal cross-couplings to
 frames other than the new oldest are dropped, and landmarks whose
 observations all left the window are dropped rather than marginalized.
 
-Every solve goes through :func:`uslam_tpu_torch.pipeline.run_solver`,
-which refuses TF32 matmuls on the card. The packed step output is
-``(10 n + 15,)`` float32: window quat, trans, vel, the departing frame and
-the LM statistics; the statistics come from the LM's host loop and are
-appended on the host.
+Every solve refuses TF32 matmuls on the card
+(:func:`uslam_tpu_torch.pipeline.require_full_float32`). The packed step
+output is ``(10 n + 15,)`` float32: window quat, trans, vel, the departing
+frame and the LM statistics, packed on the device (:func:`step_output`).
 """
 
 from __future__ import annotations
@@ -56,9 +60,10 @@ from uslam_tpu_torch.graph.builder import (
     compute_imu_whiteners,
 )
 from uslam_tpu_torch.graph.values import BIAS_DIM, FRAME_DIM, Values
-from uslam_tpu_torch.pipeline import run_solver
-from uslam_tpu_torch.solvers.lm import LMStats
+from uslam_tpu_torch.pipeline import require_full_float32, run_solver
+from uslam_tpu_torch.solvers import compiled
 from uslam_tpu_torch.solvers.linearize import linearize_graph
+from uslam_tpu_torch.solvers.lm import LMStats, solve_lm
 
 # Padding id of the device-resident window's feature slots.
 ID_SENTINEL = np.int32(np.iinfo(np.int32).max)
@@ -290,15 +295,30 @@ def device_window_graph(st: DeviceWindowState, rec: DeviceWindowRecord):
 
 
 def window_step_core(st: DeviceWindowState, rec: DeviceWindowRecord, cam, dvl_sigma,
-                     stereo_sigma, gravity, solver_cfg):
+                     stereo_sigma, gravity, solver_cfg, *, graphed: bool | None = None):
     """One steady-state keyframe on the device: window graph, LM solve,
     dropped-factor marginal, PSD projection, state roll. Returns (new
     state, outputs (10 n + 10,) on the device: window quat, trans, vel and
-    the departing frame, LMStats)."""
-    graph, initial = device_window_graph(st, rec)
-    values, stats, lam = solve_and_marginalize(
-        graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg
-    )
+    the departing frame, LMStats of 0-d tensors on the device).
+
+    ``graphed`` (default: on CUDA without ``debug_nans``): the graph build
+    replays as one CUDA graph (``"window_graph"``) keyed by the window's
+    shapes, and the LM as its step's graph
+    (:func:`uslam_tpu_torch.solvers.lm.solve_lm`), with no host read when
+    ``max_iterations <= LM_BLOCK``; ``graphed=False`` runs them eagerly.
+    The linearizations (the LM's first, the marginal's) replay their own
+    graphs either way."""
+    require_full_float32(st.trans.device)
+    if graphed is None:
+        graphed = st.trans.device.type == "cuda" and not solver_cfg.debug_nans
+    if graphed:
+        graph, initial = compiled.call("window_graph", device_window_graph, (st, rec), ())
+    else:
+        graph, initial = device_window_graph(st, rec)
+    values, stats = solve_lm(graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg,
+                             graphed=graphed)
+    lam = marginal_information(graph, values, cam, dvl_sigma, stereo_sigma, gravity)
+    # eigh reads its status back to the host, so no graph holds it.
     w, V = torch.linalg.eigh(0.5 * (lam + lam.T))
     sqrt_info = (V * torch.sqrt(torch.clamp(w, min=0.0))).T
 
@@ -331,10 +351,11 @@ def window_step_core(st: DeviceWindowState, rec: DeviceWindowRecord, cam, dvl_si
     return new_state, outputs, stats
 
 
-def step_output(outputs: np.ndarray, stats: LMStats) -> np.ndarray:
-    """Fetched (10 n + 10,) outputs + the LM statistics -> the packed
-    (10 n + 15,) float32 step output."""
-    return np.concatenate([np.asarray(outputs, np.float32), np.array(stats, np.float32)])
+def step_output(outputs: torch.Tensor, stats: LMStats) -> torch.Tensor:
+    """:func:`window_step_core`'s (10 n + 10,) outputs and LM statistics (0-d
+    tensors) -> the packed (10 n + 15,) float32 step output, on their device
+    (the JAX package's layout), so one copy fetches both."""
+    return torch.cat([outputs.to(torch.float32), torch.stack([s.to(torch.float32) for s in stats])])
 
 
 def unpack_step_outputs(flat):
@@ -526,6 +547,8 @@ class FixedLagSmoother:
             self._store_marginal(lam.cpu().numpy().astype(np.float64), values)
             oldest = self._frames.popleft()
             self._trajectory.append(np.concatenate([oldest.quat, oldest.trans, oldest.vel]))
+            if self.device_resident and self._dev_state is None and self.device.type == "cuda":
+                self._prime_device_step()
         return values
 
     def _window_graph(self):
@@ -632,6 +655,17 @@ class FixedLagSmoother:
             self.device,
         )
 
+    def _prime_device_step(self) -> None:
+        """Capture the steady keyframe's CUDA graphs at the first
+        marginalization, so that no steady keyframe pays for them: the device
+        window is made from the frames just kept (as the first steady step
+        would make it), and one step runs on the newest frame's record, its
+        results dropped."""
+        self._init_device_state(frames=list(self._frames))
+        rec = upload(self._frame_record_arrays(self._frames[-1]), self.device)
+        window_step_core(self._dev_state, rec, *self._noise(),
+                         self.steady_solver or self.config.solver)
+
     def _device_step(self) -> Values:
         if self._dev_state is None:
             self._init_device_state()
@@ -645,7 +679,7 @@ class FixedLagSmoother:
         synchronize(self.device)
         t2 = time.perf_counter()
         pq, pt, vv, departing, stats = unpack_step_outputs(
-            step_output(outputs.cpu().numpy(), stats)
+            step_output(outputs, stats).cpu().numpy()
         )
         t3 = time.perf_counter()
         self.timings.append({

@@ -5,13 +5,36 @@ lambda starts at ``lambda_initial`` and is divided/multiplied by
 ``lambda_factor`` on accept/reject (Marquardt diagonal damping with a
 floor by default), GTSAM's ``checkConvergence`` on accepted steps, and the
 plateau stop. A rejected step re-solves with the SAME linearization; only
-an accepted step re-linearizes.
+an accepted step changes it.
 
-The JAX package's ``lax.while_loop`` becomes a host loop over the same
-:class:`LMState`. Each iteration reads back one number, the candidate's
-error; the accept/reject decision and the lambda, stall and convergence
-bookkeeping then run on the host in the solve's floating type, so every
-comparison rounds as the JAX loop's did.
+The JAX package's ``lax.while_loop`` state lives on the device here too:
+:class:`LMState` holds 0-d tensors, and a step is the JAX step written in
+``torch.where``: the accept test with the NaN -> inf guard, lambda
+divided with its floor or multiplied, the convergence tests, the lambda
+blow-up and the plateau band. Every comparison runs in the solve's float
+type, as the JAX loop's device-side ones do. An ``active`` flag
+(``iterations < max_iterations`` and not converged) gates every update,
+so a step after the stop leaves the state exactly as it was: steps run in
+blocks, and the host reads "stopped" once per block.
+
+Where ``lax.cond`` skips the re-linearization of a rejected step,
+:func:`lm_step` (the step a CUDA graph holds) linearizes at the kept
+values anyway and selects the old linearization (the same values; a
+reject, and a step after the stop, costs one linearization of device
+time); run eagerly, the step takes the branch on the host as the JAX
+package's does, in one read of the accept flag (and, at the end of a
+block, of "stopped" with it).
+
+On the card (no ``debug_nans``, no ``group``) :func:`lm_step` is captured
+once as a CUDA graph (:func:`uslam_tpu_torch.solvers.compiled.loop`),
+keyed by the graph's shapes and the solver settings the step reads, and
+replayed with the state in its static buffers, ``LM_BLOCK`` times
+between reads of "stopped" and at most ``max_iterations`` times: at most
+``ceil(iterations / LM_BLOCK)`` reads per solve, and none when
+``max_iterations <= LM_BLOCK`` (the online window step). On the CPU, with
+``debug_nans`` and with ``group`` the same step runs eagerly, one step per
+block unless ``block`` says otherwise; blocks of any size give the same
+bits.
 
 The default linear solver is the landmark Schur complement with velocity
 elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
@@ -29,18 +52,17 @@ With the flag off no check runs and no host read is added.
 
 ``group`` runs the same policy landmark-sharded over a ``torch.distributed``
 process group (:func:`uslam_tpu_torch.parallel.mesh.sharded_optimize_lm`):
-every rank runs the host loop, the solves carry the collectives, and the
-errors the loop decides on are the first rank's, so every rank takes the
-same branch.
+every rank runs the loop, the solves carry the collectives, and the errors
+the step decides on are the first rank's, so every rank takes the same
+branch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from uslam_tpu_torch.collectives import any_rank, from_first_rank
@@ -48,10 +70,16 @@ from uslam_tpu_torch.config import SolverConfig
 from uslam_tpu_torch.geometry.camera import StereoCamera
 from uslam_tpu_torch.graph.builder import GraphArrays
 from uslam_tpu_torch.graph.values import Values, values_retract
+from uslam_tpu_torch.solvers import compiled
 from uslam_tpu_torch.solvers.banded import solve_schur_banded
 from uslam_tpu_torch.solvers.dense import assemble_dense_with_landmarks, solve_dense_gn
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.schur import solve_schur
+
+# LM steps per CUDA-graph replay: at least the online window's 4 (one replay
+# and no read per keyframe). A step after the stop still costs a whole
+# iteration of device time (PERF.md).
+LM_BLOCK = 4
 
 
 def check_finite(stage: str, *tensors: torch.Tensor, group=None) -> None:
@@ -65,19 +93,24 @@ def check_finite(stage: str, *tensors: torch.Tensor, group=None) -> None:
 
 
 class LMState(NamedTuple):
-    """The loop's state between iterations (the JAX package's fields);
-    ``error`` and ``lam`` are numpy scalars of the solve's float type."""
+    """The loop's state between iterations (the JAX package's fields), on
+    the solve's device: ``error`` and ``lam`` are 0-d tensors of the solve's
+    float type, ``iterations`` and ``stall`` 0-d int64, ``converged`` 0-d
+    bool."""
 
     values: Values
-    lin: object            # Linearization at `values` (reused on reject)
-    error: float
-    lam: float
-    iterations: int
-    stall: int             # consecutive iterations without meaningful decrease
-    converged: bool
+    lin: object                 # Linearization at `values` (kept on reject)
+    error: torch.Tensor
+    lam: torch.Tensor
+    iterations: torch.Tensor
+    stall: torch.Tensor         # consecutive iterations without meaningful decrease
+    converged: torch.Tensor
 
 
 class LMStats(NamedTuple):
+    """Python numbers from :func:`optimize_lm`; 0-d tensors on the solve's
+    device from :func:`solve_lm`."""
+
     initial_error: float
     final_error: float
     iterations: int
@@ -85,55 +118,44 @@ class LMStats(NamedTuple):
     converged: bool
 
 
-def optimize_lm(
-    graph: GraphArrays,
-    initial: Values,
-    cam: StereoCamera,
-    dvl_sigma: float,
-    stereo_sigma: float,
-    gravity: float,
-    cfg: SolverConfig = SolverConfig(),
-    huber_delta: float | None = None,
-    group=None,
-) -> tuple[Values, LMStats]:
-    """Run LM to convergence. ``group``: landmark-sharded (module
-    docstring); ``graph.stereo.lm_obs_idx``/``lm_obs_mask`` hold this
-    rank's slice, everything else is the same on every rank."""
-    if group is not None and cfg.linear_solver != "schur":
-        raise ValueError("sharded LM requires the schur linear solver")
-    if cfg.reduced_solver == "banded" and cfg.band_width <= 0:
-        raise ValueError(
-            "reduced_solver='banded' needs band_width >= the max track "
-            "span (solvers.banded.measure_band_width)"
-        )
-    n, m = initial.num_poses, initial.num_landmarks
-    # Host-side scalars in the solve's float type, so comparisons round as
-    # the JAX loop's device-side ones did.
-    f = {torch.float32: np.float32, torch.float64: np.float64}[initial.pose_trans.dtype]
+def graph_config(cfg: SolverConfig) -> SolverConfig:
+    """``cfg`` with the fields the LM step does not read set to their
+    defaults: the part of a graph's cache key that is the solver's."""
+    d = SolverConfig()
+    return dataclasses.replace(cfg, max_obs_per_landmark=d.max_obs_per_landmark,
+                               banded_unroll=d.banded_unroll, debug_nans=d.debug_nans,
+                               f64_polish=d.f64_polish)
 
-    def err_fn(values: Values) -> float:
-        err = graph_error(graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta)
-        return f(from_first_rank(err, group).item())
 
-    def lin_fn(values: Values):
-        return linearize_graph(
-            graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta
-        )
+class _Problem(NamedTuple):
+    error: object       # values -> 0-d error (the first rank's with a group)
+    linearize: object   # values -> Linearization
+    solve: object       # (lin, lam) -> step
 
+
+def _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, group,
+             n: int, m: int, check) -> _Problem:
     diag_damping = cfg.damping_mode == "diag"
     # Marquardt damping with the lambda floor keeps the scaled diagonal at
     # >= 1 + lambda, itself the PD margin; otherwise restore the 1e-7 jitter
     # (same rule as the JAX package).
     floored_diag = diag_damping and min(cfg.lambda_initial, cfg.lambda_lower_bound) >= 1e-7
     jitter = cfg.cholesky_jitter if floored_diag else max(cfg.cholesky_jitter, 1e-7)
-    check = None
-    if cfg.debug_nans:
-        check = check_finite if group is None else functools.partial(check_finite, group=group)
+
+    def error(values: Values) -> torch.Tensor:
+        err = graph_error(graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta)
+        return from_first_rank(err, group)
+
+    def linearize(values: Values):
+        lin = linearize_graph(graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta)
+        if check:
+            check("linearize", *lin)
+        return lin
 
     def solve(lin, lam):
         if cfg.reduced_solver == "banded":
             return solve_schur_banded(
-                lin, graph.stereo, n, m, float(lam),
+                lin, graph.stereo, n, m, lam,
                 band_w=cfg.band_width,
                 panel=cfg.banded_panel or None,
                 refine_iters=(
@@ -147,7 +169,7 @@ def optimize_lm(
             )
         if cfg.linear_solver == "schur":
             return solve_schur(
-                lin, graph.stereo, n, m, float(lam),
+                lin, graph.stereo, n, m, lam,
                 cg=cfg.reduced_solver == "cg",
                 cg_iters=cfg.cg_max_iterations,
                 cg_tol=cfg.cg_tol,
@@ -164,70 +186,204 @@ def optimize_lm(
         if check:
             check("dense assembly", H, g)
         delta = solve_dense_gn(
-            H, g, float(lam), refine_iters=cfg.refine_iters, jitter=jitter,
+            H, g, lam, refine_iters=cfg.refine_iters, jitter=jitter,
             diag_damping=diag_damping,
         )
         if check:
             check("reduced solve", delta)
         return delta
 
-    def linearize(values: Values):
-        lin = lin_fn(values)
-        if check:
-            check("linearize", *lin)
-        return lin
+    return _Problem(error, linearize, solve)
 
-    def step(state: LMState) -> LMState:
-        error = state.error
-        candidate = values_retract(state.values, solve(state.lin, state.lam))
-        if check:
-            check("step", *candidate)
-        new_error = err_fn(candidate)
-        if check and not math.isfinite(new_error):
-            raise FloatingPointError("debug_nans: non-finite value after the new error stage")
-        if not math.isfinite(new_error):
-            new_error = f(np.inf)
-        accept = bool(new_error < error)
-        values, lin = (candidate, linearize(candidate)) if accept else (state.values, state.lin)
 
-        decrease = np.abs(error - new_error)
-        converged = accept and bool(
-            (new_error <= cfg.error_tol)
-            | (decrease <= cfg.absolute_error_tol)
-            | (decrease <= cfg.relative_error_tol * error)
+def _select(take: torch.Tensor, new, old):
+    """Leafwise ``torch.where(take, new, old)`` over a NamedTuple."""
+    return type(old)(*(torch.where(take, a, b) for a, b in zip(new, old)))
+
+
+def _decide(state: LMState, p: _Problem, cfg: SolverConfig, check=None):
+    """One iteration of the JAX package's ``step`` on tensors, gated by
+    ``active``, but for its linearization: (the next state, still holding
+    the old linearization; ``take``, whether the step was taken)."""
+    active = (state.iterations < cfg.max_iterations) & ~state.converged
+    error = state.error
+    candidate = values_retract(state.values, p.solve(state.lin, state.lam))
+    if check:
+        check("step", *candidate)
+    new_error = p.error(candidate)
+    if check:
+        check("new error", new_error)
+    # Guard NaN/Inf (divergence detection): a non-finite candidate is rejected.
+    new_error = torch.where(torch.isfinite(new_error), new_error, float("inf"))
+    accept = new_error < error
+    take = active & accept
+
+    # GTSAM checkConvergence on accepted steps; lambda blow-up => stuck.
+    decrease = torch.abs(error - new_error)
+    converged = accept & (
+        (new_error <= cfg.error_tol)
+        | (decrease <= cfg.absolute_error_tol)
+        | (decrease <= cfg.relative_error_tol * error)
+    )
+    lam = torch.where(
+        accept,
+        torch.clamp(state.lam / cfg.lambda_factor, min=cfg.lambda_lower_bound),
+        state.lam * cfg.lambda_factor,
+    )
+    converged = converged | (lam > cfg.lambda_upper_bound)
+    # Plateau stop: consecutive iterations whose error change stays in the
+    # progress band; a reject that degraded the error a lot neither counts
+    # nor resets.
+    band = torch.clamp(cfg.plateau_rtol * error, min=10.0 * cfg.absolute_error_tol)
+    fast = accept & ((error - new_error) > band)
+    slow = decrease <= band
+    stall = torch.where(fast, 0, torch.where(slow, state.stall + 1, state.stall))
+    if cfg.plateau_patience > 0:
+        converged = converged | (stall >= cfg.plateau_patience)
+    return LMState(
+        _select(take, candidate, state.values), state.lin,
+        torch.where(take, new_error, error),
+        torch.where(active, lam, state.lam),
+        state.iterations + active.long(),
+        torch.where(active, stall, state.stall),
+        state.converged | (active & converged),
+    ), take
+
+
+def lm_step(state: LMState, p: _Problem, cfg: SolverConfig) -> LMState:
+    """One LM step with no host read (the step a CUDA graph holds): a graph
+    cannot branch on device values, so it linearizes at the kept values
+    anyway and selects (the same values as ``lax.cond``'s). After the stop
+    it returns the state's values unchanged."""
+    new, take = _decide(state, p, cfg)
+    return new._replace(lin=_select(take, p.linearize(new.values), state.lin))
+
+
+def _eager_step(state: LMState, p: _Problem, cfg: SolverConfig, check, read_stopped: bool):
+    """One LM step run eagerly: ``lax.cond``'s branch on the host, so only
+    a taken step linearizes. One host read: the accept flag, and with
+    ``read_stopped`` "stopped" after the step beside it. Returns (the
+    state, "stopped" or None)."""
+    new, take = _decide(state, p, cfg, check)
+    if read_stopped:
+        taken, stopped = torch.stack([take, _stopped(new, cfg)]).tolist()
+    else:
+        taken, stopped = bool(take), None
+    if taken:
+        new = new._replace(lin=p.linearize(new.values))
+    return new, stopped
+
+
+def _stopped(state: LMState, cfg: SolverConfig) -> torch.Tensor:
+    return (state.iterations >= cfg.max_iterations) | state.converged
+
+
+def _graph_step(graph, cam, state, dvl_sigma, stereo_sigma, gravity, huber_delta, cfg):
+    """One LM step and the "stopped" flag: the body of the graphed step
+    (:func:`uslam_tpu_torch.solvers.compiled.loop`)."""
+    p = _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, None,
+                 state.values.num_poses, state.values.num_landmarks, None)
+    state = lm_step(state, p, cfg)
+    return state, _stopped(state, cfg)
+
+
+def solve_lm(
+    graph: GraphArrays,
+    initial: Values,
+    cam: StereoCamera,
+    dvl_sigma: float,
+    stereo_sigma: float,
+    gravity: float,
+    cfg: SolverConfig = SolverConfig(),
+    huber_delta: float | None = None,
+    group=None,
+    *,
+    block: int | None = None,
+    graphed: bool | None = None,
+) -> tuple[Values, LMStats]:
+    """Run LM to convergence; the statistics stay 0-d tensors on the
+    solve's device (nothing is read for them). ``group``: landmark-sharded
+    (module docstring); ``graph.stereo.lm_obs_idx``/``lm_obs_mask`` hold
+    this rank's slice, everything else is the same on every rank.
+
+    ``graphed`` (default: on CUDA without ``debug_nans`` and ``group``)
+    replays one step's CUDA graph, reading "stopped" after every ``block``
+    replays (default ``LM_BLOCK``); ``graphed=False`` runs the same steps
+    eagerly in blocks of ``block`` (default 1). A capture that fails
+    raises."""
+    if group is not None and cfg.linear_solver != "schur":
+        raise ValueError("sharded LM requires the schur linear solver")
+    if cfg.reduced_solver == "banded" and cfg.band_width <= 0:
+        raise ValueError(
+            "reduced_solver='banded' needs band_width >= the max track "
+            "span (solvers.banded.measure_band_width)"
         )
-        new_lam = (
-            np.maximum(state.lam / f(cfg.lambda_factor), f(cfg.lambda_lower_bound))
-            if accept
-            else state.lam * f(cfg.lambda_factor)
-        )
-        converged = converged or bool(new_lam > cfg.lambda_upper_bound)
-        # Plateau stop: consecutive iterations whose error change stays in
-        # the progress band; a reject that degraded the error a lot neither
-        # counts nor resets.
-        band = np.maximum(f(cfg.plateau_rtol) * error, f(10.0 * cfg.absolute_error_tol))
-        stall = state.stall
-        if accept and (error - new_error) > band:
-            stall = 0
-        elif decrease <= band:
-            stall += 1
-        if cfg.plateau_patience > 0:
-            converged = converged or stall >= cfg.plateau_patience
-        return LMState(values, lin, new_error if accept else error, f(new_lam),
-                       state.iterations + 1, stall, converged)
+    eligible = (initial.pose_trans.device.type == "cuda" and group is None
+                and not cfg.debug_nans)
+    if graphed is None:
+        graphed = eligible
+    if graphed and not eligible:
+        raise ValueError("graphed LM needs CUDA tensors, no group and debug_nans off")
+    k = block or (LM_BLOCK if graphed else 1)
+    if k < 1:
+        raise ValueError(f"block {k} < 1")
+    check = None
+    if cfg.debug_nans:
+        check = check_finite if group is None else functools.partial(check_finite, group=group)
+    n, m = initial.num_poses, initial.num_landmarks
+    sig = (dvl_sigma, stereo_sigma, gravity)
+    p = _problem(graph, cam, *sig, cfg, huber_delta, group, n, m, check)
 
     # On the card lin holds clones of a replayed graph's outputs, so it
     # outlives the error's replays (another graph) and later linearizations.
-    lin = linearize(initial)
-    init_error = err_fn(initial)
-    state = LMState(initial, lin, init_error, f(cfg.lambda_initial), 0, 0, False)
-    while state.iterations < cfg.max_iterations and not state.converged:
-        state = step(state)
+    lin = p.linearize(initial)
+    init_error = p.error(initial)
+    dev = init_error.device
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    state = LMState(
+        initial, lin, init_error,
+        torch.full((), cfg.lambda_initial, dtype=init_error.dtype, device=dev),
+        count, count, torch.zeros((), dtype=torch.bool, device=dev),
+    )
+    if graphed:
+        # At most max_iterations replays: the state is stopped after them.
+        state = compiled.loop("lm_step", _graph_step, (graph, cam), state,
+                              (*sig, huber_delta, graph_config(cfg)), cfg.max_iterations, k)
+    else:
+        n_blocks = -(-cfg.max_iterations // k)
+        for b in range(n_blocks):
+            last = b == n_blocks - 1
+            for i in range(k):
+                state, stopped = _eager_step(state, p, cfg, check,
+                                             read_stopped=i == k - 1 and not last)
+            if stopped:
+                break
+    stats = LMStats(init_error, state.error, state.iterations, state.lam, state.converged)
+    return state.values, stats
 
-    return state.values, LMStats(
-        initial_error=float(init_error),
-        final_error=float(state.error),
-        iterations=state.iterations,
-        final_lambda=float(state.lam),
-        converged=state.converged,
+
+def optimize_lm(
+    graph: GraphArrays,
+    initial: Values,
+    cam: StereoCamera,
+    dvl_sigma: float,
+    stereo_sigma: float,
+    gravity: float,
+    cfg: SolverConfig = SolverConfig(),
+    huber_delta: float | None = None,
+    group=None,
+    *,
+    block: int | None = None,
+    graphed: bool | None = None,
+) -> tuple[Values, LMStats]:
+    """Run LM to convergence (:func:`solve_lm`); the statistics come back
+    as Python numbers, in one host read."""
+    values, stats = solve_lm(
+        graph, initial, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, group,
+        block=block, graphed=graphed,
+    )
+    e0, e, it, lam, conv = torch.stack([s.double() for s in stats]).tolist()
+    return values, LMStats(
+        initial_error=e0, final_error=e, iterations=int(it), final_lambda=lam,
+        converged=bool(conv),
     )

@@ -45,6 +45,7 @@ from uslam_tpu_torch.collectives import all_gather_rows, all_reduce_sum
 from uslam_tpu_torch.device import cast_tree
 from uslam_tpu_torch.graph.builder import StereoObservations
 from uslam_tpu_torch.graph.values import BIAS_DIM, LM_DIM, POSE_DIM, VEL_DIM
+from uslam_tpu_torch.solvers import compiled
 from uslam_tpu_torch.solvers.bands import (
     CamBands,
     assemble_cam_bands,
@@ -281,7 +282,10 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
     Iterations run in blocks of ``CG_BLOCK``: inside a block an iteration
     whose stopping test holds leaves the state as it is (``torch.where``),
     and the host reads the test once per block, so the result is the JAX
-    loop's with one sync per block instead of one per iteration."""
+    loop's with one sync per block instead of one per iteration. Inside a
+    CUDA graph's capture (the LM's block) nothing may read the host: all
+    ``ceil(iters / CG_BLOCK)`` blocks run, the frozen ones leaving the state
+    as it is, which is the JAX package's ``while_loop`` exactly."""
     d_inv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(A), min=1e-20))
     As = A * d_inv[:, None] * d_inv[None, :]
     bs = b * d_inv
@@ -289,9 +293,10 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
     thresh = tol * tol * torch.clamp(rr, min=1e-30)
     x, r, p = torch.zeros_like(bs), bs, bs
     it = torch.zeros((), dtype=torch.int64, device=b.device)
-    tiny = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
+    tiny = torch.full((), 1e-30, dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    while True:
+    in_graph = compiled.capturing()
+    for _ in range(-(-iters // CG_BLOCK)):
         for _ in range(CG_BLOCK):
             active = (it < iters) & (rr > thresh)
             Ap = As @ p
@@ -307,5 +312,6 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
             p = torch.where(active, p_new, p)
             rr = torch.where(active, rr_new, rr)
             it = it + active.long()
-        if not bool((it < iters) & (rr > thresh)):
-            return x * d_inv
+        if not in_graph and not bool((it < iters) & (rr > thresh)):
+            break
+    return x * d_inv
