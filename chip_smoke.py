@@ -8,7 +8,8 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``
-   (fast_harris, hamming, preintegrate), g++ the C++ bag scanner from
+   (fast_harris, hamming, preintegrate, jacobi_eigh; one nvcc per source,
+   all started together), g++ the C++ bag scanner from
    ``uslam_tpu_torch/native``.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (FAST+Harris on 16 images at each of
@@ -35,8 +36,16 @@ Phases, each of which raises (exit code != 0) on failure:
    bounds (what the intervals' data needs, once), the plain version's
    time, the chain's floor (one interval alone, measured; phase 2 prints
    the chain's SASS instructions per step), and in the former 24-row
-   layout. Then a torch.profiler breakdown of one front-end chunk's device
-   time.
+   layout. The Jacobi eigensolver kernel (``jacobi_eigh``) against its
+   plain version on tests/test_torch_eigh.py's cases (the same seeds) and a
+   batch of 64 random symmetric 15 x 15, float32 and float64, to
+   ``JACOBI_RTOL`` of the input's norm (eigenvalues and PSD projections;
+   bit-identity printed), then its time on the SPD 15 x 15 in float32
+   beside its bound (the bytes of A, w and V, or the 9 n^3 operations of a
+   symmetric eigendecomposition with vectors), its chain of dependent
+   rounds (a latency figure, apart from the bound), the plain version's
+   time and torch.linalg.eigh's.
+   Then a torch.profiler breakdown of one front-end chunk's device time.
 4. slice: ``run_sequence`` with the default ``UslamConfig()`` (Schur +
    velocity elimination) on a rendered 20 s synthetic dive (100 stereo
    keyframes at 1920x1080, 200 landmarks, 200 Hz IMU); checks the launch
@@ -69,16 +78,23 @@ Phases, each of which raises (exit code != 0) on failure:
    window=10, solve_during_fill=False)`` three times: (a) the host
    smoother with the per-frame front end, (b) ``pipelined=True`` (fused
    front end and window step on the device), (c) ``device_resident=True``.
-   Checks 3 fast_harris and 1 hamming launches per keyframe on each pass,
-   equal keyframe counts, no pending keyframe after ``flush()``, each
-   ATE within ``ONLINE_ATE_VS_ODOM`` of the DVL odometry's and (b) within
-   ``ONLINE_DIVERGENCE_M`` of (a); prints per-keyframe host ms (median,
-   p90) of the steady keyframes, the timing split, LM iterations, one
-   steady keyframe under torch.profiler, and the window's landmarks by
-   observation count; (a)'s last window graphed against eager bit for bit,
-   and its IMU block against the 24-row path;
-   the CUDA-graph captures of each pass, none after the first steady
-   keyframe on (b) and (c).
+   Checks each keyframe's launches (3 fast_harris and 1 hamming; 1
+   jacobi_eigh per steady keyframe on (b) and (c); the priming step's at
+   keyframe 10), equal keyframe counts, no pending keyframe after
+   ``flush()``, each ATE within ``ONLINE_ATE_VS_ODOM`` of the DVL
+   odometry's and (b) within ``ONLINE_DIVERGENCE_M`` of (a); on (b) and
+   (c) every steady keyframe's step, from its record's upload to its
+   packed output, under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   host read; the mode shown to raise on one), no capture on or after the
+   first steady keyframe, and the graphed step equal to the eager one
+   (``graphed=False``) bit for bit on the pass's last window, whose
+   marginal the Jacobi kernel is held to its plain version on and timed
+   on; prints per-keyframe host ms (median, p90) of the steady keyframes
+   beside keyframe 10's, the timing split, LM iterations, one steady
+   keyframe under torch.profiler, and the window's landmarks by
+   observation count; (a)'s last window graphed against eager bit for
+   bit, and its IMU block against the 24-row path; the CUDA-graph captures
+   of each pass.
 9. survey: bench.py's scaling sweep (bench.py:517-628) on the banded
    solver: a survey trajectory of 2000, then 4000 poses (precomputed
    features, packed by the port), ``reduced_solver="banded"`` with band
@@ -169,9 +185,9 @@ Phases, each of which raises (exit code != 0) on failure:
    captures, replays, host ms per iteration and the device's busy share of
    one graphed solve; and the online window step of phase 8's pass (c),
    graphed against eager, bit for bit, with no capture and no LM host
-   read. Phase 8 checks that the device-resident passes capture nothing
-   on or after the first steady keyframe and that their window LM reads
-   nothing on the host.
+   read (its three graphs replayed three times). Phase 8 checks that the
+   device-resident passes capture nothing on or after the first steady
+   keyframe and that their window LM reads nothing on the host.
 
 After each of phases 4-12 and 14 the CUDA graphs it captured and replayed
 are printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2,
@@ -265,6 +281,18 @@ IMU_TANGENT_ROWS = 24
 # layout: the arithmetic is unchanged, so the solve must repeat them.
 SLICE_BEFORE = (83, 0.07104358822107315)
 FP64_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores (data sheet)
+# The Jacobi eigensolver kernel against its plain version, relative to the
+# input's Frobenius norm: eigenvalues and the PSD projection V diag(max(w,
+# 0)) V^T, to the bounds tests/test_torch_eigh.py holds the plain version to
+# against jnp.linalg.eigh (1e-5 in float32, 1e-12 in float64). Both run the
+# same rotations in the same order, so they agree bit for bit wherever they
+# stop after the same sweep; a differing stop stays within these bounds.
+JACOBI_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
+# Its cases: tests/test_torch_eigh.py's, from the same numpy seeds, and a
+# batch of random symmetric 15 x 15 (the window marginal's size).
+JACOBI_SEEDS = {"spd15": 0, "indefinite15": 1, "repeated15": 2, "diagonal15": 3, "zero15": 4,
+                "symmetric2": 5, "symmetric9": 6, "symmetric32": 7}
+JACOBI_BATCH = (64, 15, 8)    # matrices, size, seed
 # Phase 14: replays of the graphed LM step between host reads, timed on the
 # 1k solve besides LM_BLOCK (each step after the stop costs a whole
 # iteration of device time).
@@ -679,6 +707,119 @@ def check_preintegrate(cases) -> dict:
                 f"{err_b / err_ms!r}; the former layout ({IMU_TANGENT_ROWS} x {n} rows + Jacobian, "
                 f"before) {rows24_ms!r} ms, bound {r24_b!r} ms{floor}")
     return out
+
+
+def jacobi_case(name: str):
+    """tests/test_torch_eigh.py's case ``name`` (float64 numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(JACOBI_SEEDS[name])
+    if name == "spd15":
+        J = rng.normal(size=(15, 15))
+        return J @ J.T
+    if name == "indefinite15":
+        Q, _ = np.linalg.qr(rng.normal(size=(15, 15)))
+        w = np.concatenate([rng.uniform(1.0, 10.0, 10), rng.uniform(-2e-9, -5e-10, 5)])
+        return (Q * w) @ Q.T
+    if name == "repeated15":
+        return np.kron(np.eye(5), np.ones((3, 3))) + 2.0 * np.eye(15)
+    if name == "diagonal15":
+        return np.diag(rng.normal(size=15))
+    if name == "zero15":
+        return np.zeros((15, 15))
+    n = int(name[len("symmetric"):])
+    J = rng.normal(size=(n, n))
+    return J + J.T
+
+
+def jacobi_compare(label: str, A) -> dict:
+    """The kernel against its plain version on ``A`` (..., n, n) on the card:
+    eigenvalues and PSD projections within JACOBI_RTOL of the input's norm,
+    bit-identity, sweeps. Returns {max_abs_err, rel_err, same, sweeps}."""
+    import torch
+
+    from uslam_tpu_torch.solvers import eig
+
+    w, V, sw = eig.sym_eigh(A)
+    wp, Vp, swp = eig.sym_eigh_plain(A)
+    torch.cuda.synchronize()
+    same = torch.equal(w, wp) and torch.equal(V, Vp) and torch.equal(sw, swp)
+    err = max(float((w - wp).abs().max()), float((V - Vp).abs().max())) if w.numel() else 0.0
+
+    def psd(w, V):
+        return (V * torch.clamp(w, min=0.0)[..., None, :]) @ V.mT
+
+    norm = float(torch.linalg.norm(A.double(), dim=(-2, -1)).max())
+    rel = max(float((w - wp).abs().max()), float((psd(w, V) - psd(wp, Vp)).abs().max())) / max(
+        norm, 1e-300) if w.numel() else 0.0
+    tol = JACOBI_RTOL[str(A.dtype)]
+    log(f"  jacobi_eigh {label} {tuple(A.shape)} {A.dtype}: max_abs_err {err!r}, eigenvalues and "
+        f"PSD projection within {rel!r} of ||A|| (tolerance {tol}, met {rel <= tol}); "
+        f"bit-identical {same}; sweeps {sorted(set(sw.flatten().tolist()))} (plain "
+        f"{sorted(set(swp.flatten().tolist()))})")
+    if not rel <= tol:
+        raise AssertionError(f"jacobi_eigh disagrees with its plain version on {label}")
+    return {"max_abs_err": err, "rel_err": rel, "same": same,
+            "sweeps": int(sw.max()) if sw.numel() else 0}
+
+
+def jacobi_bound(n: int, itemsize: int):
+    """(bound ms, by) of one n x n symmetric eigendecomposition with its
+    eigenvectors, whatever the algorithm: A read once, w and V written once;
+    9 n^3 operations, the symmetric QR algorithm's count with vectors
+    (tridiagonal reduction, its Q, and the implicit QR steps; Golub and
+    Van Loan, "Matrix Computations", section 8.3)."""
+    n_bytes = itemsize * (n * n + n + n * n)
+    return bound_ms(n_bytes, 9 * n ** 3, FP32_OPS_PER_S if itemsize == 4 else FP64_OPS_PER_S)
+
+
+def jacobi_times(A, label: str) -> dict:
+    """The kernel's time on one matrix (KERNEL_REPS launches between CUDA
+    events), its bound, the plain version's time and torch.linalg.eigh's
+    (the library call, used nowhere in the port). Beside them, as a latency
+    figure and not part of the bound: the kernel's chain of dependent
+    rounds, (m - 1) per sweep at the padded size m = n + n % 2, for the
+    sweeps this matrix took."""
+    from uslam_tpu_torch.solvers import eig
+
+    import torch
+
+    n = A.shape[-1]
+    sweeps = int(eig.sym_eigh(A)[2].max())
+    rounds = (n + n % 2 - 1) * sweeps
+    ms = cuda_ms(lambda: eig.sym_eigh(A), KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: eig.sym_eigh_plain(A), PLAIN_REPS)
+    library_ms = cuda_ms(lambda: torch.linalg.eigh(A), KERNEL_REPS)
+    b_ms, b_by = jacobi_bound(n, A.element_size())
+    log(f"  jacobi_eigh {label} {tuple(A.shape)} {A.dtype}: kernel {ms!r} ms, bound {b_ms!r} ms "
+        f"({b_by}: {9 * n ** 3} operations, 9 n^3), share {b_ms / ms!r}; chain: {sweeps} sweeps, "
+        f"{rounds} dependent rounds, {ms / max(rounds, 1) * 1e3!r} us per round; plain "
+        f"{plain_ms!r} ms; torch.linalg.eigh {library_ms!r} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "sweeps": sweeps, "rounds": rounds}
+
+
+def check_jacobi() -> dict:
+    """Phase 3's Jacobi checks: tests/test_torch_eigh.py's cases and a batch
+    of random symmetric 15 x 15, float32 and float64, then the times on the
+    15 x 15 SPD case in float32 (the main path's size and type)."""
+    import numpy as np
+    import torch
+
+    worst = {"max_abs_err": 0.0, "rel_err": 0.0, "same": True}
+    b, n, seed = JACOBI_BATCH
+    B = np.random.default_rng(seed).normal(size=(b, n, n))
+    for dt in (torch.float32, torch.float64):
+        cases = [(name, jacobi_case(name)) for name in JACOBI_SEEDS]
+        cases.append((f"batch of {b}", B + np.swapaxes(B, 1, 2)))
+        for name, A in cases:
+            r = jacobi_compare(name, torch.tensor(A, dtype=dt, device="cuda"))
+            worst = {"max_abs_err": max(worst["max_abs_err"], r["max_abs_err"]),
+                     "rel_err": max(worst["rel_err"], r["rel_err"]),
+                     "same": worst["same"] and r["same"]}
+    worst.update(jacobi_times(torch.tensor(jacobi_case("spd15"), dtype=torch.float32,
+                                           device="cuda"), "spd15"))
+    return worst
 
 
 def compiled_vs_eager(graph, values, cam, sig, huber, label: str) -> dict:
@@ -1272,11 +1413,29 @@ def profile_call(fn) -> dict:
             "profiler_s": time.perf_counter() - t_all}
 
 
+def sync_debug_control() -> bool:
+    """torch.cuda.set_sync_debug_mode("error") raises on a host read (a
+    ``.item()``): the mode the steady keyframes run under is on."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device="cuda").item()
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return False
+
+
 def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
     """Stream ``events`` through ``OnlineSlam(cfg, window=ONLINE_WINDOW,
     solve_during_fill=False, device="cuda", **mode)`` with the kernels'
-    launch counts set to 0 just before; host ms of every keyframe's
-    ``add_stereo_frame``, one steady keyframe under the profiler."""
+    launch counts set to 0 just before; host ms and kernel launches of
+    every keyframe's ``add_stereo_frame``, one steady keyframe under the
+    profiler. On the device paths each steady keyframe's step, from its
+    record's upload to its packed output (``_dispatch``), runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read raises."""
     import numpy as np
     import torch
 
@@ -1285,11 +1444,27 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
     from uslam_tpu_torch.solvers import compiled
 
     online = OnlineSlam(cfg, window=ONLINE_WINDOW, solve_during_fill=False, device="cuda", **mode)
-    call_ms, profiled = {}, None
+    guard = {"on": False, "calls": 0}
+    target = online if online.fused else online.smoother if online.device_resident else None
+    if target is not None:
+        dispatch = target._dispatch
+
+        def guarded(*args, **kwargs):
+            if not guard["on"]:
+                return dispatch(*args, **kwargs)
+            guard["calls"] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        target._dispatch = guarded
+    call_ms, kf_launches, profiled, last = {}, {}, None, None
     # CUDA-graph captures and LM host reads up to the first marginalization
     # (keyframe ONLINE_WINDOW): the device-resident paths capture the steady
-    # window step there, so no steady keyframe captures, and their window LM
-    # reads nothing on the host.
+    # step's graphs there, so no steady keyframe captures, and their window
+    # LM reads nothing on the host.
     captures_at = reads_at = None
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1302,13 +1477,21 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
             online.add_dvl_pose(t, seq.dvl_pose_quat[i], seq.dvl_pose_pos[i])
         elif kind == "twist":
             online.add_dvl_twist(t, seq.dvl_twist_vel[i])
-        elif online.keyframes == ONLINE_WINDOW + 1 + ONLINE_PROFILED_STEADY and profiled is None:
-            profiled = profile_call(lambda: online.add_stereo_frame(t, left[i], right[i]))
         else:
-            k, ts = online.keyframes, time.perf_counter()
-            online.add_stereo_frame(t, left[i], right[i])
+            k = online.keyframes
+            guard["on"] = k > ONLINE_WINDOW
+            before = dict(kernels.launch_counts)
+            if k == ONLINE_WINDOW + 1 + ONLINE_PROFILED_STEADY and profiled is None:
+                profiled = profile_call(lambda: online.add_stereo_frame(t, left[i], right[i]))
+            else:
+                ts = time.perf_counter()
+                online.add_stereo_frame(t, left[i], right[i])
+                if online.keyframes > k:
+                    call_ms[k] = (time.perf_counter() - ts) * 1e3
+            guard["on"] = False
             if online.keyframes > k:
-                call_ms[k] = (time.perf_counter() - ts) * 1e3
+                kf_launches[k] = {n: kernels.launch_counts[n] - before[n] for n in before}
+                last = (t, i)
         if captures_at is None and online.keyframes == ONLINE_WINDOW + 1:
             captures_at = sum(compiled.captures.values())
             reads_at = sum(compiled.reads.values())
@@ -1325,7 +1508,7 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
     steady = [ms for k, ms in call_ms.items() if k > ONLINE_WINDOW]
     timings = online.timings[ONLINE_WINDOW + 1:]
     keys = ("frontend_ms", "triangulate_ms", "graph_ms", "record_ms", "solve_ms", "fetch_ms",
-            "pair_wait_ms", "dispatch_ms", "harvest_wait_ms", "harvest_ms")
+            "dispatch_ms", "harvest_wait_ms", "harvest_ms")
     split = {k: float(np.median([e[k] for e in timings])) for k in keys
              if timings and all(k in e for e in timings)}
     iters = [e["lm_iters"] for e in timings if "lm_iters" in e]
@@ -1341,13 +1524,19 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
         "captures": dict(compiled.captures), "steady_captures": steady_captures,
         "steady_reads": steady_reads, "first_marginal_ms": call_ms.get(ONLINE_WINDOW),
         "max_ms": max(call_ms.values()), "max_at": max(call_ms, key=call_ms.get),
+        "kf_launches": kf_launches, "guarded": guard["calls"], "last": last,
     }
+    front = ("fast_harris", "hamming", "jacobi_eigh")
     log(f"online pass {label}: {out['keyframes']} keyframes ({out['steady']} steady, one more "
         f"profiled) in {wall!r} s = {out['keyframes'] / wall!r} keyframes/s; steady ms per "
         f"keyframe median {out['median_ms']!r}, p90 {out['p90_ms']!r}; launches {launches}")
     log(f"  keyframe {ONLINE_WINDOW} (the first marginalization, where the device paths "
-        f"capture the window step): {out['first_marginal_ms']!r} ms; the slowest timed "
-        f"keyframe {out['max_ms']!r} ms (keyframe {out['max_at']})")
+        f"capture the steady step's graphs): {out['first_marginal_ms']!r} ms beside the steady "
+        f"median {out['median_ms']!r} and p90 {out['p90_ms']!r}; the slowest timed keyframe "
+        f"{out['max_ms']!r} ms (keyframe {out['max_at']})")
+    log(f"  launches per keyframe (fast_harris, hamming, jacobi_eigh): "
+        f"{[tuple(kf_launches[k][f] for f in front) for k in sorted(kf_launches)]}; steady "
+        f"steps run under the sync check: {guard['calls']}")
     log(f"  steady split, medians (ms): {split}; LM iterations, median {out['lm_iters']!r} "
         f"(max {max(iters) if iters else None})")
     log(f"  CUDA graphs: captures so far in the phase {out['captures']}, {steady_captures} of "
@@ -1364,6 +1553,54 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
             f"{profiled['kernels']} kernels, {profiled['copies']} copies (the profiled call took "
             f"{profiled['profiler_s']!r} s in all)")
     return out
+
+
+def steady_step_check(p: dict, cfg, left, right) -> dict:
+    """After a device pass: its steady step, graphed (the cached graphs: no
+    capture) against eager (``graphed=False``) on the same inputs (the
+    pass's final window and front-end state, its last pair and a record),
+    bit for bit; then the Jacobi kernel against its plain version on that
+    window's marginal (the matrix the step hands ``sym_eigh``), and the
+    kernel's time on it beside its bound, the plain version's and
+    torch.linalg.eigh's."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers import fixed_lag as fl
+    from uslam_tpu_torch.solvers.lm import solve_lm
+
+    o = p["online"]
+    sm = o.smoother
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    t, i = p["last"]
+    captures = sum(compiled.captures.values())
+    if o.fused:
+        pair = torch.from_numpy(np.stack([left[i], right[i]])).cuda()
+        rec = fl.upload(o._fused_record(t, None, None), "cuda")
+        args = (sm._dev_state, o._fe_state, pair, rec, sm.cam, o.frontend.kvec,
+                o.frontend.ransac_idx, *sig, o._steady_solver, cfg.frontend)
+        g = fl.fused_keyframe_step(*args)
+        e = fl.fused_keyframe_step(*args, graphed=False)
+        leaves_g, leaves_e = [*g[0], *g[1], g[2]], [*e[0], *e[1], e[2]]
+        graph, initial = fl.fused_front(*args[:7], cfg.frontend)[:2]
+    else:
+        rec = fl.upload(sm._frame_record_arrays(sm._frames[-1]), "cuda")
+        args = (sm._dev_state, rec, sm.cam, *sig, sm.steady_solver)
+        g = fl.window_step(*args)
+        e = fl.window_step(*args, graphed=False)
+        leaves_g, leaves_e = [*g[0], g[1]], [*e[0], e[1]]
+        graph, initial = fl.device_window_graph(sm._dev_state, rec)
+    recaptured = sum(compiled.captures.values()) - captures
+    same = all(torch.equal(a, b) for a, b in zip(leaves_g, leaves_e))
+    log(f"  {p['label']}: the steady step on its last window, graphed = eager bit for bit: "
+        f"{same} ({len(leaves_g)} leaves); captures {recaptured}")
+    values, _ = solve_lm(graph, initial, sm.cam, *sig, o._steady_solver)
+    lam = fl.marginal_information(graph, values, sm.cam, *sig)
+    A = 0.5 * (lam + lam.T)
+    r = jacobi_compare(f"{p['label']}'s last window marginal", A)
+    r.update(jacobi_times(A, f"{p['label']}'s last window marginal"))
+    return {"same": same, "recaptured": recaptured, "jacobi": r}
 
 
 def online_inputs(seq) -> tuple:
@@ -1406,18 +1643,34 @@ def online_phase(seq, cfg) -> dict:
     log(f"  (a)'s last window: landmarks by observation count "
         f"{dict((k, int(c)) for k, c in enumerate(per_lm) if k and c)}")
     b = online_pass("(b) pipelined", cfg, seq, events, left, right, pipelined=True)
+    b_step = steady_step_check(b, cfg, left, right)
     c = online_pass("(c) device-resident", cfg, seq, events, left, right, device_resident=True)
+    c_step = steady_step_check(c, cfg, left, right)
     passes = (a, b, c)
     div = {p["label"]: float(np.linalg.norm(p["traj"] - a["traj"], axis=1).max()) for p in (b, c)}
     log(f"  divergence from (a), max over keyframes (m): {div}")
     log(f"online phase: {time.perf_counter() - t_phase!r} s")
     checks = dict(window_checks)
+    checks["online: the sync check's mode raises on a host read"] = sync_debug_control()
+    front = ("fast_harris", "hamming", "jacobi_eigh")
     for p in passes:
         name = p["label"]
         launches = p["launches"]
-        checks[f"online {name}: fast_harris 3 and hamming 1 launches per keyframe"] = (
-            {k: launches[k] for k in ("fast_harris", "hamming")} == {"fast_harris": 3 * p["keyframes"],
-                                                           "hamming": p["keyframes"]})
+        kf = p["kf_launches"]
+        device = p is not a
+        # The priming at the first marginal (keyframe ONLINE_WINDOW): the
+        # smoother's window step (the tail's warm-up and replay: 2
+        # jacobi_eigh) and, on the fused path, one fused step (the front
+        # graph's warm-up and replay: 6 fast_harris, 2 hamming; the tail's
+        # replay: 1 jacobi_eigh).
+        primed = (3 * (1 + 2 * (p is b)), 1 + 2 * (p is b), (2 + (p is b)) * device)
+        expected = {k: (3, 1, int(device and k > ONLINE_WINDOW)) if k != ONLINE_WINDOW else primed
+                    for k in kf}
+        checks[f"online {name}: launches per keyframe: fast_harris 3, hamming 1, jacobi_eigh "
+               f"{int(device)} per steady keyframe; {primed} at keyframe {ONLINE_WINDOW}"] = (
+            sorted(kf) == list(range(p["keyframes"]))
+            and all(tuple(kf[k][f] for f in front) == expected[k] for k in kf)
+            and all(launches[f] == sum(d[f] for d in kf.values()) for f in front))
         checks[f"online {name}: preintegrate launched"] = launches["preintegrate"] > 0
         checks[f"online {name}: trajectory finite, one row per keyframe"] = (
             p["traj"].shape == (p["keyframes"], 3) and bool(np.isfinite(p["traj"]).all()))
@@ -1425,15 +1678,20 @@ def online_phase(seq, cfg) -> dict:
             p["ate"] <= ONLINE_ATE_VS_ODOM * p["ate_odom"])
         checks[f"online {name}: at least 8 steady keyframes"] = p["steady"] >= 8
     checks["online: keyframes equal across passes"] = len({p["keyframes"] for p in passes}) == 1
-    for p in (b, c):
+    for p, step in ((b, b_step), (c, c_step)):
         checks[f"online {p['label']}: no CUDA-graph capture on or after the first steady "
-               "keyframe"] = p["steady_captures"] == 0
+               "keyframe"] = p["steady_captures"] == 0 and step["recaptured"] == 0
         checks[f"online {p['label']}: the window LM reads nothing on the host"] = (
             p["steady_reads"] == 0)
+        checks[f"online {p['label']}: every steady step ran under set_sync_debug_mode('error') "
+               "with no host read"] = p["guarded"] == p["steady"] + 1
+        checks[f"online {p['label']}: the graphed steady step = the eager one, bit for bit"] = (
+            step["same"])
     checks["online (b): no pending keyframe after flush()"] = b["online"]._pending is None
     checks["online (b): fused steps ran"] = any(e.get("pipelined") for e in b["online"].timings)
     checks[f"online (b) within {ONLINE_DIVERGENCE_M} m of (a)"] = div[b["label"]] < ONLINE_DIVERGENCE_M
-    return {"checks": checks, "launches": a["launches"], "passes": passes}
+    return {"checks": checks, "launches": a["launches"], "passes": passes,
+            "jacobi": {p["label"]: step["jacobi"] for p, step in ((b, b_step), (c, c_step))}}
 
 
 def _rel(a, b) -> float:
@@ -2579,8 +2837,8 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
             _tree_equal(frames, ref[0]))
         checks[f"multi-device (a): launches per call: pairs fast_harris {levels} hamming 1, "
                f"frames fast_harris {levels} hamming 0"] = (
-            launches["pairs"] == {"fast_harris": levels, "hamming": 1, "preintegrate": 0}
-            and launches["frames"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0})
+            launches["pairs"] == {"fast_harris": levels, "hamming": 1, "preintegrate": 0, "jacobi_eigh": 0}
+            and launches["frames"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0})
         checks["multi-device (a): the sharded LM launches preintegrate"] = (
             launches["sharded_lm"]["preintegrate"] > 0)
         return {"checks": checks, "launches": launches,
@@ -2766,7 +3024,7 @@ def surface_phase(cfg) -> dict:
     launches["extract_orb"] = dict(kernels.launch_counts)
     one = extract_orb_batch(img[None], cfg.frontend)
     checks[f"extract_orb: {levels} fast_harris launches, nothing else"] = (
-        launches["extract_orb"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0})
+        launches["extract_orb"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0})
     checks["extract_orb bit-identical to extract_orb_batch of one image"] = all(
         torch.equal(a, b[0]) for a, b in zip(kp, one))
 
@@ -2821,7 +3079,7 @@ def surface_phase(cfg) -> dict:
         f"{launches['hamming_distance_matrix']}, max_abs_err vs hamming_plain "
         f"{int((dist - plain).abs().max())}, {hd_ms!r} ms")
     checks["hamming_distance_matrix: 1 hamming launch, nothing else"] = (
-        launches["hamming_distance_matrix"] == {"fast_harris": 0, "hamming": 1, "preintegrate": 0})
+        launches["hamming_distance_matrix"] == {"fast_harris": 0, "hamming": 1, "preintegrate": 0, "jacobi_eigh": 0})
     checks["hamming_distance_matrix equals hamming_plain"] = (
         dist.shape == SURFACE_HAMMING and torch.equal(dist, plain))
 
@@ -2965,36 +3223,37 @@ def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg,
 
 def window_graph_check(online_c, cfg) -> dict:
     """The device-resident window step of phase 8's pass (c) on its last
-    window: graphed (the "window_graph" and "lm_step" graphs the smoother
-    captured) against eager, bit for bit; the replays' host reads and host
-    ms."""
+    window: graphed (the "window_graph", "lm_step" and "window_tail" graphs
+    the smoother captured) against eager, bit for bit; the replays' host
+    reads and host ms."""
     import torch
 
     from uslam_tpu_torch.solvers import compiled
-    from uslam_tpu_torch.solvers.fixed_lag import upload, window_step_core
+    from uslam_tpu_torch.solvers.fixed_lag import unpack_step_outputs, upload, window_step
 
     sm = online_c.smoother
     rec = upload(sm._frame_record_arrays(sm._frames[-1]), "cuda")
     args = (sm._dev_state, rec, sm.cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma,
             cfg.imu.gravity, sm.steady_solver)
     compiled.reset_counts()
-    t_g, graphed = _median_ms(lambda: window_step_core(*args))
+    t_g, graphed = _median_ms(lambda: window_step(*args))
     counts = (dict(compiled.captures), dict(compiled.replays), dict(compiled.reads))
-    t_e, eager = _median_ms(lambda: window_step_core(*args, graphed=False))
-    leaves_g = [*graphed[0], graphed[1], *graphed[2]]
-    leaves_e = [*eager[0], eager[1], *eager[2]]
+    t_e, eager = _median_ms(lambda: window_step(*args, graphed=False))
+    leaves_g, leaves_e = [*graphed[0], graphed[1]], [*eager[0], eager[1]]
     same = all(torch.equal(a, b) for a, b in zip(leaves_g, leaves_e))
+    iterations = int(unpack_step_outputs(graphed[1].cpu().numpy())[4].iterations)
     log(f"  online window step (pass (c)'s last window, max_iterations "
-        f"{sm.steady_solver.max_iterations}, {int(graphed[2].iterations)} LM iterations): "
+        f"{sm.steady_solver.max_iterations}, {iterations} LM iterations): "
         f"graphed = eager bit for bit: {same}; host ms graphed {t_g!r}, eager {t_e!r} (median "
         f"of 3); captures {counts[0]}, replays {counts[1]}, LM host reads {counts[2]}")
     steps = 3 * sm.steady_solver.max_iterations
     return {"checks": {"online window step: graphed = eager, bit for bit": same,
-                       f"online window step: replays (window_graph 3, lm_step {steps}), no "
-                       "capture, no LM host read":
+                       f"online window step: replays (window_graph 3, lm_step {steps}, "
+                       "window_tail 3), no capture, no LM host read":
                        counts[0] == {} and counts[2] == {}
                        and counts[1].get("window_graph") == 3
-                       and counts[1].get("lm_step") == steps},
+                       and counts[1].get("lm_step") == steps
+                       and counts[1].get("window_tail") == 3},
             "graphed_ms": t_g, "eager_ms": t_e}
 
 
@@ -3298,6 +3557,7 @@ def main() -> int:
     del rendered, rendered_levels, textured_levels, pair_levels, kp, real, real_pair, flush_buf
     torch.cuda.empty_cache()
     pi = check_preintegrate(preintegrate_cases(cfg))
+    jac = check_jacobi()
     profile_chunk(seq, cfg)
 
     # ---- 4. the slice, default config: run_sequence on the card ------------
@@ -3520,6 +3780,34 @@ def main() -> int:
                 "keyframe_bound_ms": pi["times"][("online window", "torch.float32")]["bound_ms"],
                 # Phase 9: the survey's layouts at each size.
                 "survey_ms": survey_2k["preint_ms"],
+            },
+            {
+                "name": "jacobi_eigh", "route": "cuda",
+                "source": "uslam_tpu_torch/csrc/jacobi_eigh.cu",
+                # No Pallas kernel: jnp.linalg.eigh of the window step's
+                # marginal, compiled into the JAX package's keyframe program.
+                "replaces": "uslam_tpu/solvers/fixed_lag.py:677",
+                # Phase 8, the device-resident passes (b) and (c): one per
+                # steady keyframe, and the priming at the first marginal.
+                "launches": sum(p["launches"]["jacobi_eigh"] for p in online["passes"]),
+                "online_pass_launches": {p["label"]: p["launches"]["jacobi_eigh"]
+                                         for p in online["passes"]},
+                # Against its plain version: phase 3's cases and phase 8's
+                # last window marginals.
+                "max_abs_err": max([jac["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in online["jacobi"].values()]),
+                # Times on pass (b)'s last window marginal (15 x 15 float32);
+                # the bound from n alone, the sweeps and the chain of
+                # dependent rounds they make beside it.
+                **{k: online["jacobi"]["(b) pipelined"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "sweeps", "rounds")},
+                "share": online["jacobi"]["(b) pipelined"]["bound_ms"]
+                / online["jacobi"]["(b) pipelined"]["ms"],
+                # Phase 3: the SPD 15 x 15 case in float32.
+                "spd15_ms": jac["ms"], "spd15_library_ms": jac["library_ms"],
+                "bit_identical_to_plain": jac["same"] and all(
+                    r["same"] for r in online["jacobi"].values()),
             },
         ]
     }

@@ -26,6 +26,7 @@ from uslam_tpu.frontend.fast import fast_corners, harris_response
 from uslam_tpu.frontend.match import hamming_distance_matrix
 from uslam_tpu.frontend.pallas_kernels import fast_harris_pallas, hamming_matrix_pallas
 from uslam_tpu_torch.frontend import kernels
+from uslam_tpu_torch.solvers.eig import sym_eigh
 
 MARGIN = 5
 HARRIS_RTOL = 2e-5
@@ -143,7 +144,9 @@ def test_plain_versions_do_not_count_launches():
     kernels.fast_harris(torch.zeros((1, 16, 16)), 10.0)
     a = torch.zeros((1, 4, 8), dtype=torch.int32)
     kernels.hamming(a, a)
-    assert kernels.launch_counts == {"fast_harris": 0, "hamming": 0, "preintegrate": 0}
+    sym_eigh(torch.eye(3))
+    assert kernels.launch_counts == {"fast_harris": 0, "hamming": 0, "preintegrate": 0,
+                                     "jacobi_eigh": 0}
 
 
 @pytest.mark.cuda

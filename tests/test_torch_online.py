@@ -13,8 +13,15 @@ Tolerances, with their reasons:
   against split within 0.4 m, the JAX package's bound between its own two
   paths (tests/test_online_fused.py); fused ATE below the DVL odometry's;
 - pipelined against fused: the same computations on the same inputs, so
-  equal bit for bit.
+  equal bit for bit;
+- one fused keyframe (the stream's first, on a pair the window tracks)
+  against the JAX package's jitted ``_fused_keyframe_step``: the front
+  end's new state and the rolled-in record exact, triangulated points to
+  FUSED_INIT_RTOL, the solve to the FUSED_* quality bounds (their comment
+  says why).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -25,11 +32,15 @@ from scipy.ndimage import shift as nd_shift
 
 from tests.test_frontend import textured_image
 from tests.test_torch_frontend import jax_ransac_indices
+from uslam_tpu import config as jconfig
 from uslam_tpu.config import CameraConfig, FrontendConfig
 from uslam_tpu.frontend import tracker as jtracker
 from uslam_tpu.geometry import camera as jcam
 from uslam_tpu.geometry import se3 as jse3
+from uslam_tpu.graph.packing import PackedPytree
+from uslam_tpu.solvers import fixed_lag as jfl
 from uslam_tpu_torch import config as tconfig
+from uslam_tpu_torch import online as tonline
 from uslam_tpu_torch.eval.metrics import ate_rmse
 from uslam_tpu_torch.frontend import tracker as ttracker
 from uslam_tpu_torch.geometry import camera as tcam
@@ -37,11 +48,25 @@ from uslam_tpu_torch.geometry.se3 import Pose3
 from uslam_tpu_torch.interop import config_to_port, from_port
 from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
 from uslam_tpu_torch.online import OnlineSlam
+from uslam_tpu_torch.solvers import fixed_lag as tfl
 from uslam_tpu_torch.solvers.fixed_lag import intern_ids
 
 CAM = CameraConfig(fx=200.0, fy=200.0, cx=128.0, cy=96.0, baseline=0.1,
                    resolution_x=256, resolution_y=192)
 FCFG = FrontendConfig(pyramid_levels=1, max_features_per_cell=6)
+# The fused keyframe against the JAX package's: triangulated points to a
+# few float32 ulps of the largest coordinate (XLA rounds the back-projection
+# and the rotation in another order; measured 1.3e-7). The solve's outputs
+# agree to the solve's accuracy, not to rounding: on this keyframe JAX's
+# float32 Schur solve rejects a step and stops at error 8.4 where the
+# port's float64 one reaches 0.056 (ROADMAP C, repaired faults), so the
+# port's final error must be no higher than JAX's, and the estimates and
+# state agree to FUSED_RTOL of their largest entry (or 1; measured up to
+# 4.8e-3, velocities), the marginal (sqrt_info^T sqrt_info) to
+# FUSED_MARG_RTOL of its largest entry (measured 1.5e-2).
+FUSED_INIT_RTOL = 1e-6
+FUSED_RTOL = 2e-2
+FUSED_MARG_RTOL = 5e-2
 SMALL_CAM = tconfig.CameraConfig(
     fx=300.0, fy=300.0, cx=160.0, cy=120.0, baseline=0.35, resolution_x=320, resolution_y=240,
 )
@@ -195,11 +220,10 @@ def _one_thread():
     torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
-def streams():
+def stream():
     """A 2 s SMALL_CAM stream (10 keyframes; 100 Hz IMU, 32 samples per
-    interval, and 2 LM iterations per steady keyframe, to keep the CPU
-    linearizations cheap) through the host, split, fused and pipelined
-    paths with a window of 4."""
+    interval, to keep the CPU linearizations cheap) and its config:
+    (config, sequence with uint8 frames)."""
     cfg = tconfig.UslamConfig(
         camera=SMALL_CAM,
         imu=tconfig.ImuConfig(default_dt=0.01, max_samples_per_keyframe=32),
@@ -212,6 +236,14 @@ def streams():
     )
     seq.images_left = np.clip(seq.images_left, 0, 255).astype(np.uint8)
     seq.images_right = np.clip(seq.images_right, 0, 255).astype(np.uint8)
+    return cfg, seq
+
+
+@pytest.fixture(scope="module")
+def streams(stream):
+    """The stream through the host, split, fused and pipelined paths with a
+    window of 4 and 2 LM iterations per steady keyframe."""
+    cfg, seq = stream
     runs = {}
     for name, mode in (("host", {}), ("split", dict(device_resident=True)),
                        ("fused", dict(fused=True)), ("pipelined", dict(pipelined=True))):
@@ -252,6 +284,104 @@ def test_pipelined_equals_fused_bit_for_bit(streams):
     assert all("lm_iters" in e for e in piped.timings if e.get("pipelined"))
     np.testing.assert_array_equal(piped.trajectory(), fused.trajectory())
     np.testing.assert_array_equal(piped.smoother.trajectory, fused.smoother.trajectory)
+
+
+class _FusedInputs(Exception):
+    """Stops a stream at its first fused keyframe, holding that step's
+    arguments."""
+
+
+def _first_fused_inputs(cfg, seq):
+    """The arguments of the stream's first fused keyframe (window 4, 2 LM
+    iterations per steady keyframe, the JAX package's RANSAC indices):
+    (window state, front-end state, pair, record, cam, kvec, hypotheses,
+    dvl_sigma, stereo_sigma, gravity, steady solver, frontend config)."""
+    online = OnlineSlam(cfg, window=4, solve_during_fill=False, max_update_iters=4, fused=True,
+                        device="cpu", ransac_idx=jax_ransac_indices(cfg.frontend.max_features))
+
+    def stop(*args, **kwargs):
+        raise _FusedInputs(*args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tonline, "fused_keyframe_step", stop)
+        with pytest.raises(_FusedInputs) as hit:
+            _stream(online, seq)
+    return hit.value.args
+
+
+def test_fused_keyframe_step_matches_jax(stream):
+    """One steady keyframe through the JAX package's jitted
+    ``_fused_keyframe_step`` and the port's ``fused_keyframe_step``, from the
+    same window state, front-end state, stereo pair (uint8) and record: what
+    the port's stream hands its first fused keyframe. The front end's new
+    state and the rows it rolls into the window exact (triangulated points
+    to FUSED_INIT_RTOL); the solve's outputs to FUSED_RTOL."""
+    cfg, seq = stream
+    args = list(_first_fused_inputs(cfg, seq))
+    # The stream tracks few keypoints from one keyframe to the next at this
+    # size, so the pair is the previous keyframe's moved (1, 2) px: most of
+    # its keypoints are tracked and inherit their ids (landmarks the window
+    # holds), a few are new.
+    prev = [nd_shift(im[4].astype(np.float32), (1.0, 2.0), order=1, mode="nearest")
+            for im in (seq.images_left, seq.images_right)]
+    args[2] = torch.from_numpy(np.clip(np.stack(prev), 0, 255).astype(np.uint8))
+    st, fe, pair, rec, cam, kvec, _, dvl_sigma, stereo_sigma, gravity, solver, fcfg = args
+    new_st, new_fe, packed = tfl.fused_keyframe_step(*args)
+
+    jcfg = jconfig.UslamConfig(
+        camera=jconfig.CameraConfig(**{f: getattr(SMALL_CAM, f) for f in (
+            "fx", "fy", "cx", "cy", "baseline", "resolution_x", "resolution_y")}),
+        imu=jconfig.ImuConfig(default_dt=0.01, max_samples_per_keyframe=32),
+        frontend=jconfig.FrontendConfig(pyramid_levels=2),
+        solver=jconfig.SolverConfig(max_iterations=10),
+    )
+    jsolver = dataclasses.replace(jcfg.solver, max_iterations=4)
+    assert config_to_port(jcfg) == cfg and config_to_port(jsolver) == solver
+
+    def leaves(tree, cls):
+        return cls(**{f: jnp.asarray(getattr(tree, f).numpy()) for f in cls._fields})
+
+    fe_j = leaves(fe, jfl.FusedFrontendState)._replace(
+        desc=jnp.asarray(fe.desc.numpy().view(np.uint32)))
+    rec_j = jfl.FusedRecord(**{f: getattr(rec, f).numpy() for f in jfl.FusedRecord._fields})
+    ref_st, ref_fe, ref_out = jax.device_get(jfl._fused_keyframe_step(
+        leaves(st, jfl.DeviceWindowState), fe_j, jnp.asarray(pair.numpy()),
+        PackedPytree.pack(rec_j), jcam.StereoCamera.from_config(jcfg.camera),
+        jnp.asarray(kvec.numpy()), dvl_sigma, stereo_sigma, gravity, jsolver, jcfg,
+    ))
+
+    # The front end: ids, the id counter, mask, descriptors, keypoints exact.
+    assert int(new_fe.next_id) == int(ref_fe.next_id) > int(fe.next_id)
+    for f in ("ids", "mask", "xy"):
+        np.testing.assert_array_equal(getattr(new_fe, f).numpy(), getattr(ref_fe, f), err_msg=f)
+    np.testing.assert_array_equal(new_fe.desc.numpy().view(np.uint32), ref_fe.desc)
+    # The record rolled into the window: exact but the triangulated points.
+    tracked = np.isin(ref_fe.ids[ref_fe.ids >= 0], st.feat_ids.numpy())
+    assert tracked.sum() >= 4 and (~tracked).sum() >= 1      # inherited ids and fresh ones
+    for f in ("feat_ids", "feat_mask", "feat_meas", "imu", "imu_whitener", "imu_valid", "dvl"):
+        np.testing.assert_array_equal(getattr(new_st, f)[-1].numpy(), getattr(ref_st, f)[-1],
+                                      err_msg=f)
+    init, init_ref = new_st.feat_init[-1].numpy(), ref_st.feat_init[-1]
+    assert np.abs(init - init_ref).max() <= FUSED_INIT_RTOL * np.abs(init_ref).max()
+
+    # The solve: LM statistics and the packed window estimate.
+    n = 4 + 1
+    out = packed.numpy()
+    assert out.shape == ref_out.shape == (10 * n + 15,)
+    e0, e, it = out[10 * n + 10 : 10 * n + 13]
+    e0_ref, e_ref, it_ref = ref_out[10 * n + 10 : 10 * n + 13]
+    assert it == it_ref == 4
+    assert abs(e0 - e0_ref) <= 1e-6 * e0_ref          # the same graph at the same values
+    assert e <= e_ref < 1e-5 * e0_ref
+    assert np.abs(out[: 10 * n + 10] - ref_out[: 10 * n + 10]).max() <= FUSED_RTOL * np.abs(
+        ref_out[: 10 * n + 10]).max()
+    for f in ("quat", "trans", "vel", "bias", "marg_quat", "marg_trans", "marg_vel"):
+        a, b = getattr(new_st, f).numpy(), getattr(ref_st, f)
+        assert np.abs(a - b).max() <= FUSED_RTOL * max(np.abs(b).max(), 1.0), f
+    # The marginal's square root through sqrt_info^T sqrt_info (signs free).
+    a, b = new_st.marg_sqrt_info.numpy(), ref_st.marg_sqrt_info
+    a, b = a.T.astype(np.float64) @ a, b.T.astype(np.float64) @ b
+    assert np.abs(a - b).max() <= FUSED_MARG_RTOL * np.abs(b).max()
 
 
 def test_online_drops_unsynchronized_frames():
@@ -296,7 +426,11 @@ def cuda():
 @pytest.mark.cuda
 def test_online_kernel_launches_per_keyframe(cuda):
     """On the card: 3 fast_harris launches (2 images at each of 3 levels)
-    and 1 hamming launch per keyframe, on the host and the fused path."""
+    and 1 hamming launch per keyframe, on the host and the fused path; on
+    the fused path 1 jacobi_eigh per steady keyframe, and the priming at the
+    first marginal (the smoother's window step: the tail's warm-up and
+    replay; the fused step: the front graph's warm-up and replay, the
+    tail's replay) 6 fast_harris, 2 hamming and 3 jacobi_eigh more."""
     from uslam_tpu_torch.frontend import kernels
 
     cam = tconfig.CameraConfig(fx=600.0, fy=600.0, cx=320.0, cy=240.0, baseline=0.2,
@@ -309,7 +443,11 @@ def test_online_kernel_launches_per_keyframe(cuda):
         online = OnlineSlam(cfg, window=4, solve_during_fill=False, device=cuda, **mode)
         _stream(online, seq)
         online.flush()
-        front_end = {k: kernels.launch_counts[k] for k in ("fast_harris", "hamming")}
-        assert front_end == {"fast_harris": 3 * online.keyframes, "hamming": online.keyframes}
+        front_end = {k: kernels.launch_counts[k]
+                     for k in ("fast_harris", "hamming", "jacobi_eigh")}
+        kf, steady, primed = online.keyframes, online.keyframes - 5, bool(mode)
+        assert steady > 0
+        assert front_end == {"fast_harris": 3 * kf + 6 * primed, "hamming": kf + 2 * primed,
+                             "jacobi_eigh": (steady + 3) * primed}
         assert kernels.launch_counts["preintegrate"] > 0  # the window solves
         assert np.isfinite(online.trajectory()).all()

@@ -9,9 +9,13 @@ wrapper             CUDA source                 replaces (JAX package)
                                                 ``factors/imu.py::preintegrate``
                                                 under ``jax.jacfwd`` (one row
                                                 per IMU interval)
+``jacobi_eigh``     ``csrc/jacobi_eigh.cu``     ``jnp.linalg.eigh`` of the
+                                                online window step's marginal
+                                                (``solvers/eig.py``)
 ==================  ==========================  ==============================
 
-Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
+per source, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use (never at import), into ``uslam_tpu_torch/_build/``,
 keyed by a hash of the sources and flags, so a fresh checkout builds
@@ -39,10 +43,10 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launch_counts = {"fast_harris": 0, "hamming": 0, "preintegrate": 0}
+launch_counts = {"fast_harris": 0, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -69,6 +73,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "uslam_fast_harris_strip_rows": [i32, i32, i32],
         "uslam_hamming": [vp, vp, vp, i32, i32, i32, vp],
         "uslam_preintegrate": [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        "uslam_jacobi_eigh": [i32, vp, vp, vp, vp, i32, i32, i32, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -93,13 +98,21 @@ def load() -> ctypes.CDLL:
         if not so.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            nvcc, out = _nvcc(), {"stdout": subprocess.PIPE, "stderr": subprocess.STDOUT,
+                                  "text": True}
+            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], **out)
+                     for src, obj in zip(sources, objs)]
+            build_log = "".join(proc.communicate()[0] for proc in procs)
+            rc = next((proc.returncode for proc in procs if proc.returncode), 0)
+            if not rc:
+                link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                       *map(str, objs)], **out)
+                build_log, rc = build_log + link.stdout, link.returncode
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if rc:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{build_log}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)

@@ -50,8 +50,7 @@ class Matches(NamedTuple):
 def match_from_dist(dist, mask_a, mask_b, max_distance: int = 64, ratio: float = 0.8) -> Matches:
     """Matching A -> B given their distance matrix: dist (B, Na, Nb) int32;
     masks (B, Na), (B, Nb). Temporal matching is A current, B previous."""
-    big = dist.new_tensor(BIG)
-    dist = torch.where(mask_a[:, :, None] & mask_b[:, None, :], dist, big)
+    dist = torch.where(mask_a[:, :, None] & mask_b[:, None, :], dist, BIG)
     na = dist.shape[1]
     best_j = torch.argmin(dist, dim=2)                                # (B, Na)
     best_d = torch.gather(dist, 2, best_j[..., None])[..., 0]
@@ -91,7 +90,7 @@ def stereo_match_from_dist(
     d_v = torch.abs(xy_l[:, :, None, 1] - xy_r[:, None, :, 1])
     disp = xy_l[:, :, None, 0] - xy_r[:, None, :, 0]
     geom = (d_v <= max_v_diff) & (disp > min_disparity) & (disp < max_disparity)
-    dist = torch.where(geom, dist, dist.new_tensor(BIG))
+    dist = torch.where(geom, dist, BIG)
     return match_from_dist(dist, mask_l, mask_r, max_distance, ratio)
 
 

@@ -28,6 +28,10 @@ _PATTERN_BITS = 256
 _PATCH_RADIUS = 18          # patch half-size for descriptor sampling
 _EDGE_MARGIN = _PATCH_RADIUS + 1
 _NEG = -3.4e38              # filler score of empty slots
+# Slots scoring above it are real: float32(_NEG) * 0.5, rounded to float32.
+# Both constants go into ops as Python floats: a CUDA graph capture cannot
+# copy a tensor from the host.
+_NEG_HALF = float(np.float32(_NEG) * np.float32(0.5))
 
 
 def _make_pattern(bits: int = _PATTERN_BITS, seed: int = 42) -> np.ndarray:
@@ -39,6 +43,17 @@ def _make_pattern(bits: int = _PATTERN_BITS, seed: int = 42) -> np.ndarray:
 
 
 BRIEF_PATTERN = _make_pattern()
+_PATTERN_ON: dict = {}      # BRIEF_PATTERN as float32, per device
+
+
+def _pattern(device: torch.device) -> torch.Tensor:
+    """BRIEF_PATTERN on ``device``, copied there once, before any capture
+    (a graph's warm-up runs first)."""
+    pat = _PATTERN_ON.get(device)
+    if pat is None:
+        pat = _PATTERN_ON[device] = torch.as_tensor(BRIEF_PATTERN, dtype=torch.float32,
+                                                     device=device)
+    return pat
 
 
 class Keypoints(NamedTuple):
@@ -64,8 +79,7 @@ def _grid_topk(score_map, valid, rows: int, cols: int, per_cell: int):
     Returns (ys, xs, scores, mask), each (B, rows*cols*per_cell)."""
     B, h, w = score_map.shape
     ch, cw = -(-h // rows), -(-w // cols)
-    neg = score_map.new_tensor(_NEG)
-    s = torch.where(valid, score_map, neg)
+    s = torch.where(valid, score_map, _NEG)
     s = torch.nn.functional.pad(s, (0, cw * cols - w, 0, ch * rows - h), value=_NEG)
     cells = (
         s.reshape(B, rows, ch, cols, cw).permute(0, 1, 3, 2, 4).reshape(B, rows * cols, ch * cw)
@@ -74,7 +88,7 @@ def _grid_topk(score_map, valid, rows: int, cols: int, per_cell: int):
     r = torch.arange(rows * cols, device=s.device)[:, None]
     ys = (r // cols) * ch + idx // cw
     xs = (r % cols) * cw + idx % cw
-    mask = vals > neg * 0.5
+    mask = vals > _NEG_HALF
     return ys.reshape(B, -1), xs.reshape(B, -1), vals.reshape(B, -1), mask.reshape(B, -1)
 
 
@@ -98,7 +112,7 @@ def _rbrief(patches: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     words (bit-views of the JAX package's uint32 words)."""
     P = patches.shape[-1]
     c0 = (P - 1) // 2
-    pat = torch.as_tensor(BRIEF_PATTERN, dtype=torch.float32, device=patches.device)
+    pat = _pattern(patches.device)
     ca, sa = torch.cos(angles)[..., None], torch.sin(angles)[..., None]
 
     def sample(y, x):
@@ -144,7 +158,7 @@ def extract_orb_batch(imgs: torch.Tensor, cfg: FrontendConfig = FrontendConfig()
         corner, harris = fast_harris(im, cfg.fast_threshold)
         corners = corner & interior_mask(h, w, 3, im.device)
         # NMS among corner candidates only: non-corners must not suppress.
-        valid = corners & nms3(torch.where(corners, harris, harris.new_tensor(_NEG)))
+        valid = corners & nms3(torch.where(corners, harris, _NEG))
         inside = interior_mask(h, w, _EDGE_MARGIN, im.device)
         ys, xs, scores, mask = _grid_topk(harris, valid & inside, rows, cols, K_cell)
 
@@ -167,10 +181,9 @@ def extract_orb_batch(imgs: torch.Tensor, cfg: FrontendConfig = FrontendConfig()
     h0, w0 = imgs.shape[-2:]
     ch, cw = -(-h0 // rows), -(-w0 // cols)
     cell = (cand.xy[..., 1] // ch).to(torch.int64) * cols + (cand.xy[..., 0] // cw).to(torch.int64)
-    neg = cand.score.new_tensor(_NEG)
-    scores = torch.where(cand.mask, cand.score, neg)
+    scores = torch.where(cand.mask, cand.score, _NEG)
     cell_ids = torch.arange(rows * cols, device=imgs.device)[None, :, None]
-    s_cells = torch.where(cell[:, None, :] == cell_ids, scores[:, None, :], neg)
+    s_cells = torch.where(cell[:, None, :] == cell_ids, scores[:, None, :], _NEG)
     _, idx = _topk_stable(s_cells, K_cell)                     # (B, cells, K_cell)
     sel = idx.reshape(idx.shape[0], -1)
 
@@ -181,7 +194,7 @@ def extract_orb_batch(imgs: torch.Tensor, cfg: FrontendConfig = FrontendConfig()
 
     out = Keypoints(*(take(a) for a in cand))
     return out._replace(
-        mask=out.mask & (out.score > neg * 0.5) & (take(scores) > neg * 0.5)
+        mask=out.mask & (out.score > _NEG_HALF) & (take(scores) > _NEG_HALF)
     )
 
 

@@ -15,7 +15,10 @@ runs the front end, id interning and triangulation on the device (implies
 keyframe k's estimate and returns keyframe k-1's (implies ``fused``; call
 :meth:`OnlineSlam.flush` to drain the last one). ``threaded_upload`` sends
 the fused path's stereo pair from a pinned buffer on a side stream, which
-the compute stream waits on.
+the compute stream waits on. On the card a steady fused keyframe is CUDA
+graph replays (:func:`uslam_tpu_torch.solvers.fixed_lag.fused_keyframe_step`)
+with no host wait between the record's upload and the packed output; the
+keyframe that makes the first marginal captures them.
 
 ``FrontendConfig(temporal_tracker="klt")`` makes the per-frame front end
 associate by KLT; the fused steady-state step matches by ORB descriptors
@@ -47,7 +50,6 @@ from uslam_tpu_torch.solvers.fixed_lag import (
     Keyframe,
     fused_keyframe_step,
     imu_whitener_record,
-    step_output,
     unpack_step_outputs,
     upload,
 )
@@ -198,6 +200,9 @@ class OnlineSlam:
         self.timings.append(entry)
         self.keyframes += 1
         self._last_values = values   # pipelined: seeds the one-keyframe lag
+        if (self.fused and self.device.type == "cuda" and self._fe_state is None
+                and sm._marg is not None and len(sm._frames) >= self.window):
+            self._prime_fused(t, left, right)   # the next keyframe is fused
         return values
 
     def _upload_pair(self, left, right):
@@ -224,60 +229,83 @@ class OnlineSlam:
         pair.record_stream(torch.cuda.current_stream(self.device))
         return pair, done
 
-    def _fused_step(self, t: float, left, right):
-        """Steady-state keyframe through :func:`fused_keyframe_step`: the
-        pair and one small record go up, one packed estimate comes back."""
-        sm = self.smoother
-        cfg = self.config
-        t0 = time.perf_counter()
-        if sm._dev_state is None:
-            sm._init_device_state(frames=list(sm._frames))
+    def _fused_frontend_state(self) -> FusedFrontendState:
+        """The device front end's state, made once from the host tracker's
+        (its state moves to the device)."""
         if self._fe_state is None:
-            # From the host tracker: its state moves to the device.
             fe = self.frontend
             self._fe_state = FusedFrontendState(
                 desc=fe._prev.desc, xy=fe._prev.xy, mask=fe._prev.mask,
                 ids=torch.as_tensor(fe._prev_ids.astype(np.int32), device=self.device),
                 next_id=torch.tensor(fe._next_id, dtype=torch.int32, device=self.device),
             )
-        pair, pair_copied = self._upload_pair(left, right)
-        t_pair = time.perf_counter()
-        rv, imu_samples = self._take_imu()
-        imu32, whit, valid = imu_whitener_record(imu_samples, cfg)
+        return self._fe_state
+
+    def _fused_record(self, t: float, rv, imu_samples) -> FusedRecord:
+        """The fused step's small inputs, float32 numpy (one upload)."""
+        imu32, whit, valid = imu_whitener_record(imu_samples, self.config)
         _, quat, pos = self._odom
-        rec = upload(
-            FusedRecord(
-                imu=imu32, whitener=whit, imu_valid=valid,
-                dvl=np.asarray(self._twist[1], np.float32),
-                quat=np.asarray(quat, np.float32),
-                pos_xy=np.asarray(pos[:2], np.float32),
-                depth=np.float32(self._depth),
-                vel0=np.asarray(self._vel0(t), np.float32),
-                rotvec=np.asarray(np.zeros(3) if rv is None else rv, np.float32),
-            ),
-            self.device,
+        return FusedRecord(
+            imu=imu32, whitener=whit, imu_valid=valid,
+            dvl=np.asarray(self._twist[1], np.float32),
+            quat=np.asarray(quat, np.float32),
+            pos_xy=np.asarray(pos[:2], np.float32),
+            depth=np.float32(self._depth),
+            vel0=np.asarray(self._vel0(t), np.float32),
+            rotvec=np.asarray(np.zeros(3) if rv is None else rv, np.float32),
         )
-        t_prep = time.perf_counter()
+
+    def _dispatch(self, pair, pair_copied, rec: FusedRecord, *, keep: bool = True):
+        """A fused keyframe on the device, from the upload of its record
+        (numpy) to the packed output: on the card, graph replays with no host
+        read. ``keep=False`` drops the new states (the priming step)."""
+        sm, cfg = self.smoother, self.config
+        rec = upload(rec, self.device)
         if pair_copied is not None:
             torch.cuda.current_stream(self.device).wait_event(pair_copied)
-        t1 = time.perf_counter()
-        sm._dev_state, self._fe_state, outputs, stats = fused_keyframe_step(
-            sm._dev_state, self._fe_state, pair, rec, sm.cam, self.frontend.kvec,
+        st, fe, packed = fused_keyframe_step(
+            sm._dev_state, self._fused_frontend_state(), pair, rec, sm.cam, self.frontend.kvec,
             self.frontend.ransac_idx, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma,
             cfg.imu.gravity, self._steady_solver, cfg.frontend,
         )
+        if keep:
+            sm._dev_state, self._fe_state = st, fe
+        return packed
+
+    def _prime_fused(self, t: float, left, right) -> None:
+        """Capture the fused step's front graph (``"fused_front"``) at the
+        keyframe that made the first marginal, on its pair, after the
+        smoother captured the window's graphs, so that no steady keyframe
+        captures: one fused step whose results are dropped."""
+        pair, pair_copied = self._upload_pair(left, right)
+        self._dispatch(pair, pair_copied, self._fused_record(t, None, None), keep=False)
+
+    def _fused_step(self, t: float, left, right):
+        """Steady-state keyframe through :func:`fused_keyframe_step`: the
+        pair and one small record go up, one packed estimate comes back."""
+        sm = self.smoother
+        t0 = time.perf_counter()
+        if sm._dev_state is None:
+            sm._init_device_state(frames=list(sm._frames))
+        pair, pair_copied = self._upload_pair(left, right)
+        t_pair = time.perf_counter()
+        rv, imu_samples = self._take_imu()
+        rec = self._fused_record(t, rv, imu_samples)
+        t1 = time.perf_counter()
+        packed = self._dispatch(pair, pair_copied, rec)
         twist = np.asarray(self._twist[1], np.float64)
+        # record_ms: the host's inputs (pair copy started, IMU, the record
+        # as numpy); the record's upload and the wait on the pair's copy are
+        # in the step's span (dispatch_ms, or solve_ms without pipelining).
         base = {
             "record_ms": (t1 - t0) * 1e3,
             "pair_stack_ms": (t_pair - t0) * 1e3,
-            "prep_ms": (t_prep - t_pair) * 1e3,
-            "pair_wait_ms": (t1 - t_prep) * 1e3,
+            "prep_ms": (t1 - t_pair) * 1e3,
             "frontend_ms": 0.0,      # inside the device step
             "triangulate_ms": 0.0,
             "fused": True,
             "tracker": "orb",        # the fused step matches by descriptors
         }
-        packed = step_output(outputs, stats)
         if self.pipelined:
             # Start the copy of keyframe k's outputs, THEN harvest k-1, so
             # that k's work is queued before the host waits on k-1's copy.

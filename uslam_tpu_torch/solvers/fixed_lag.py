@@ -7,21 +7,24 @@ prior (port of :mod:`uslam_tpu.solvers.fixed_lag`).
   smoother's device; the marginal's PSD projection runs in numpy float64.
 - Device-resident steady state (``device_resident=True``): the window
   lives in device tensors between keyframes (:class:`DeviceWindowState`).
-  Per keyframe the host uploads one record (one host-to-device copy of a
-  packed buffer), :func:`window_step_core` builds the window graph on the
+  Per keyframe the host uploads one record (one pinned, asynchronous copy
+  of a packed buffer), :func:`window_step` builds the window graph on the
   device (landmark ids interned by sort and cumulative sum, with no host
   read), runs the LM, takes the dropped factors' marginal, PSD-projects it
-  with ``torch.linalg.eigh``, rolls the state, and one packed output comes
-  back (one device-to-host copy, the LM statistics included). On the card
-  the graph build and the LM step replay CUDA graphs keyed by the window's
-  shapes (the JAX package's ``_device_window_step`` is one program), with
-  no host read when ``max_iterations <= LM_BLOCK``; ``eigh`` checks its
-  status on the host, so it runs eagerly after them. The smoother
-  captures those graphs at its first marginalization, before the first
-  steady keyframe.
+  (:func:`uslam_tpu_torch.solvers.eig.sym_eigh`, the ``jacobi_eigh``
+  kernel), rolls the state and packs the output, LM statistics included,
+  which comes back in one device-to-host copy. On the card these are
+  three CUDA graphs keyed by the window's shapes, replayed with no host
+  read when ``max_iterations <= LM_BLOCK`` (the JAX package's
+  ``_device_window_step`` is one program; graphs do not nest an LM): the
+  graph build (``"window_graph"``), the LM step (``"lm_step"``) and the
+  rest (``"window_tail"``). The smoother captures them at its first
+  marginalization, before the first steady keyframe.
 - Fused (:func:`fused_keyframe_step`): the per-frame front end, id
-  interning, triangulation and record assembly run on the device too, so
-  the host uploads the uint8 stereo pair and a small record.
+  interning, triangulation and record assembly run on the device too, in
+  one more graph with the graph build (``"fused_front"``), so the host
+  uploads the uint8 stereo pair and a small record, and waits for
+  nothing until it fetches the output.
 
 Approximations (the JAX package's, standard): marginal cross-couplings to
 frames other than the new oldest are dropped, and landmarks whose
@@ -29,8 +32,9 @@ observations all left the window are dropped rather than marginalized.
 
 Every solve refuses TF32 matmuls on the card
 (:func:`uslam_tpu_torch.pipeline.require_full_float32`). The packed step
-output is ``(10 n + 15,)`` float32: window quat, trans, vel, the departing
-frame and the LM statistics, packed on the device (:func:`step_output`).
+output is ``(10 n + 15,)``, float32 on the card: window quat, trans, vel,
+the departing frame and the LM statistics, packed on the device
+(:func:`window_tail`).
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from uslam_tpu_torch.graph.builder import (
 from uslam_tpu_torch.graph.values import BIAS_DIM, FRAME_DIM, Values
 from uslam_tpu_torch.pipeline import require_full_float32, run_solver
 from uslam_tpu_torch.solvers import compiled
+from uslam_tpu_torch.solvers.eig import sym_eigh
 from uslam_tpu_torch.solvers.linearize import linearize_graph
 from uslam_tpu_torch.solvers.lm import LMStats, solve_lm
 
@@ -182,14 +187,19 @@ def upload(tree, device):
     """A NamedTuple of float32 / int32 numpy arrays -> the same NamedTuple of
     tensors on ``device``, in ONE host-to-device copy: the leaves' bits are
     packed into one int32 buffer (integer copies keep every float bit) and
-    come back as views of it."""
+    come back as views of it. To the card the buffer goes pinned and
+    asynchronous, so the host does not wait for it."""
     leaves = [np.asarray(a) for a in tree]
     for a in leaves:
         if a.dtype not in (np.float32, np.int32):
             raise TypeError(f"upload: {a.dtype} leaf; need float32 or int32")
-    flat = torch.from_numpy(
-        np.concatenate([a.reshape(-1).view(np.int32) for a in leaves])
-    ).to(device)
+    flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.int32) for a in leaves]))
+    device = torch.device(device)
+    if device.type == "cuda":
+        # The pinned block is not reused before the copy has ended.
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = flat.to(device)
     out, o = [], 0
     for a in leaves:
         t = flat[o : o + a.size]
@@ -294,32 +304,16 @@ def device_window_graph(st: DeviceWindowState, rec: DeviceWindowRecord):
     return graph, values
 
 
-def window_step_core(st: DeviceWindowState, rec: DeviceWindowRecord, cam, dvl_sigma,
-                     stereo_sigma, gravity, solver_cfg, *, graphed: bool | None = None):
-    """One steady-state keyframe on the device: window graph, LM solve,
-    dropped-factor marginal, PSD projection, state roll. Returns (new
-    state, outputs (10 n + 10,) on the device: window quat, trans, vel and
-    the departing frame, LMStats of 0-d tensors on the device).
-
-    ``graphed`` (default: on CUDA without ``debug_nans``): the graph build
-    replays as one CUDA graph (``"window_graph"``) keyed by the window's
-    shapes, and the LM as its step's graph
-    (:func:`uslam_tpu_torch.solvers.lm.solve_lm`), with no host read when
-    ``max_iterations <= LM_BLOCK``; ``graphed=False`` runs them eagerly.
-    The linearizations (the LM's first, the marginal's) replay their own
-    graphs either way."""
-    require_full_float32(st.trans.device)
-    if graphed is None:
-        graphed = st.trans.device.type == "cuda" and not solver_cfg.debug_nans
-    if graphed:
-        graph, initial = compiled.call("window_graph", device_window_graph, (st, rec), ())
-    else:
-        graph, initial = device_window_graph(st, rec)
-    values, stats = solve_lm(graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg,
-                             graphed=graphed)
+def window_tail(st: DeviceWindowState, rec: DeviceWindowRecord, graph, values: Values, stats,
+                cam, dvl_sigma, stereo_sigma, gravity):
+    """The window step after its LM: the dropped factors' marginal, its PSD
+    square root (:func:`uslam_tpu_torch.solvers.eig.sym_eigh`: the
+    ``jacobi_eigh`` kernel on the card), the state roll and the packing.
+    Returns (new state, packed (10 n + 15,) output: window quat, trans, vel,
+    the departing frame, then the LM statistics rounded to float32, in the
+    window's type as in the JAX package)."""
     lam = marginal_information(graph, values, cam, dvl_sigma, stereo_sigma, gravity)
-    # eigh reads its status back to the host, so no graph holds it.
-    w, V = torch.linalg.eigh(0.5 * (lam + lam.T))
+    w, V, _ = sym_eigh(0.5 * (lam + lam.T))
     sqrt_info = (V * torch.sqrt(torch.clamp(w, min=0.0))).T
 
     def roll(a, b):
@@ -344,23 +338,63 @@ def window_step_core(st: DeviceWindowState, rec: DeviceWindowRecord, cam, dvl_si
         marg_vel=values.vel[1],
         marg_bias=values.bias,
     )
-    outputs = torch.cat([
+    dt = values.pose_trans.dtype
+    packed = torch.cat([
         values.pose_quat.reshape(-1), values.pose_trans.reshape(-1), values.vel.reshape(-1),
         values.pose_quat[0], values.pose_trans[0], values.vel[0],
+        torch.stack([s.to(torch.float32) for s in stats]).to(dt),
     ])
-    return new_state, outputs, stats
+    return new_state, packed
 
 
-def step_output(outputs: torch.Tensor, stats: LMStats) -> torch.Tensor:
-    """:func:`window_step_core`'s (10 n + 10,) outputs and LM statistics (0-d
-    tensors) -> the packed (10 n + 15,) float32 step output, on their device
-    (the JAX package's layout), so one copy fetches both."""
-    return torch.cat([outputs.to(torch.float32), torch.stack([s.to(torch.float32) for s in stats])])
+def _graphed(device: torch.device, solver_cfg, graphed: bool | None) -> bool:
+    require_full_float32(device)
+    if graphed is None:
+        return device.type == "cuda" and not solver_cfg.debug_nans
+    return graphed
+
+
+def _solve_window(st, rec, graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg,
+                  graphed: bool):
+    """LM on the window graph, then :func:`window_tail` (its graph,
+    ``"window_tail"``, when ``graphed``). Returns (new state, packed)."""
+    values, stats = solve_lm(graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg,
+                             graphed=graphed)
+    trees, statics = (st, rec, graph, values, stats, cam), (dvl_sigma, stereo_sigma, gravity)
+    if graphed:
+        return compiled.call("window_tail", window_tail, trees, statics)
+    return window_tail(*trees, *statics)
+
+
+def window_step(st: DeviceWindowState, rec: DeviceWindowRecord, cam, dvl_sigma, stereo_sigma,
+                gravity, solver_cfg, *, graphed: bool | None = None):
+    """One steady-state keyframe on the device, the JAX package's
+    ``_window_step_core`` / ``_device_window_step``: window graph, LM solve,
+    dropped-factor marginal, PSD projection, state roll. Returns (new
+    state, the packed (10 n + 15,) output on the device:
+    :func:`unpack_step_outputs`).
+
+    ``graphed`` (default: on CUDA without ``debug_nans``): the graph build
+    replays as one CUDA graph (``"window_graph"``) keyed by the window's
+    shapes, the LM as its step's graph
+    (:func:`uslam_tpu_torch.solvers.lm.solve_lm`), with no host read when
+    ``max_iterations <= LM_BLOCK``, and the rest as ``"window_tail"``
+    (:func:`window_tail`, the marginal's linearization inside it): no host
+    read and no launch outside a graph but their copies in and out.
+    ``graphed=False`` runs the same bodies eagerly (the linearizations
+    replay their own graphs on the card)."""
+    graphed = _graphed(st.trans.device, solver_cfg, graphed)
+    if graphed:
+        graph, initial = compiled.call("window_graph", device_window_graph, (st, rec), ())
+    else:
+        graph, initial = device_window_graph(st, rec)
+    return _solve_window(st, rec, graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
+                         solver_cfg, graphed)
 
 
 def unpack_step_outputs(flat):
-    """Packed (10 n + 15,) float32 -> (pose_quat (n, 4), pose_trans (n, 3),
-    vel (n, 3), departing (10,), LMStats of float32 scalars)."""
+    """Packed (10 n + 15,) -> (pose_quat (n, 4), pose_trans (n, 3), vel
+    (n, 3), departing (10,), LMStats of scalars rounded to float32)."""
     flat = np.asarray(flat)
     n = (flat.size - 15) // 10
     pq = flat[: 4 * n].reshape(n, 4)
@@ -413,14 +447,13 @@ def intern_ids(prev_ids, next_id, stereo_ok, tm_idx):
     return ids.to(torch.int32), next_id + nn.sum(dtype=torch.int32)
 
 
-def fused_keyframe_step(st: DeviceWindowState, fe: FusedFrontendState, pair, rec: FusedRecord,
-                        cam, kvec, hyp_idx, dvl_sigma, stereo_sigma, gravity, solver_cfg,
-                        frontend_cfg):
-    """One steady-state keyframe from the stereo pair (2, H, W) on the
-    device (any real dtype, cast here): ORB pair step (3 ``fast_harris``
-    launches at 3 levels, 1 ``hamming``), id interning, triangulation at
-    the depth-adjusted odometry pose, and :func:`window_step_core`.
-    Returns (new window state, new front-end state, outputs, LMStats)."""
+def fused_front(st: DeviceWindowState, fe: FusedFrontendState, pair, rec: FusedRecord, cam,
+                kvec, hyp_idx, frontend_cfg):
+    """The fused keyframe up to its LM: ORB pair step on the stereo pair
+    (2, H, W) (any real dtype, cast here; 3 ``fast_harris`` launches at 3
+    levels, 1 ``hamming``), id interning, triangulation at the
+    depth-adjusted odometry pose, the window record and the window graph.
+    Returns (graph, initial values, window record, new front-end state)."""
     prev = Keypoints(xy=fe.xy, score=None, angle=None, level=None, desc=fe.desc, mask=fe.mask)
     kp_l, kp_r, sm_idx, sm_mask, tm_idx = orb_pair_step(
         pair.to(torch.float32), prev, frontend_cfg, rec.rotvec, kvec, hyp_idx
@@ -442,12 +475,36 @@ def fused_keyframe_step(st: DeviceWindowState, fe: FusedFrontendState, pair, rec
         feat_init=world * fmask[:, None],
         feat_mask=fmask,
     )
-    new_state, outputs, stats = window_step_core(
-        st, win_rec, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg
-    )
+    graph, initial = device_window_graph(st, win_rec)
     new_fe = FusedFrontendState(desc=kp_l.desc, xy=kp_l.xy, mask=kp_l.mask, ids=ids,
                                 next_id=next_id)
-    return new_state, new_fe, outputs, stats
+    return graph, initial, win_rec, new_fe
+
+
+def fused_keyframe_step(st: DeviceWindowState, fe: FusedFrontendState, pair, rec: FusedRecord,
+                        cam, kvec, hyp_idx, dvl_sigma, stereo_sigma, gravity, solver_cfg,
+                        frontend_cfg, *, graphed: bool | None = None):
+    """One steady-state keyframe from the stereo pair (2, H, W) on the
+    device: :func:`fused_front`, the window's LM and :func:`window_tail`,
+    the JAX package's ``_fused_keyframe_step``. Returns (new window state,
+    new front-end state, packed (10 n + 15,) float32 output).
+
+    ``graphed`` (as :func:`window_step`'s): :func:`fused_front`
+    replays as one CUDA graph (``"fused_front"``: the pair and the record
+    are its leaves, ``frontend_cfg`` a static), then the LM step's graph
+    and ``"window_tail"``: no host read and no launch outside a graph but
+    their copies in and out. ``graphed=False`` runs the same bodies
+    eagerly."""
+    graphed = _graphed(st.trans.device, solver_cfg, graphed)
+    trees = (st, fe, pair, rec, cam, kvec, hyp_idx)
+    if graphed:
+        graph, initial, win_rec, new_fe = compiled.call("fused_front", fused_front, trees,
+                                                        (frontend_cfg,))
+    else:
+        graph, initial, win_rec, new_fe = fused_front(*trees, frontend_cfg)
+    new_state, packed = _solve_window(
+        st, win_rec, graph, initial, cam, dvl_sigma, stereo_sigma, gravity, solver_cfg, graphed)
+    return new_state, new_fe, packed
 
 
 # ---------------------------------------------------------------------------
@@ -656,15 +713,25 @@ class FixedLagSmoother:
         )
 
     def _prime_device_step(self) -> None:
-        """Capture the steady keyframe's CUDA graphs at the first
+        """Capture the steady keyframe's CUDA graphs (``"window_graph"``, the
+        window's ``"lm_step"``, ``"window_tail"``) at the first
         marginalization, so that no steady keyframe pays for them: the device
         window is made from the frames just kept (as the first steady step
         would make it), and one step runs on the newest frame's record, its
         results dropped."""
         self._init_device_state(frames=list(self._frames))
         rec = upload(self._frame_record_arrays(self._frames[-1]), self.device)
-        window_step_core(self._dev_state, rec, *self._noise(),
-                         self.steady_solver or self.config.solver)
+        window_step(self._dev_state, rec, *self._noise(), self.steady_solver or self.config.solver)
+
+    def _dispatch(self, rec: DeviceWindowRecord) -> torch.Tensor:
+        """A steady keyframe on the device, from the upload of its record
+        (numpy) to the packed output: on the card, graph replays with no
+        host read."""
+        self._dev_state, packed = window_step(
+            self._dev_state, upload(rec, self.device), *self._noise(),
+            self.steady_solver or self.config.solver,
+        )
+        return packed
 
     def _device_step(self) -> Values:
         if self._dev_state is None:
@@ -672,15 +739,10 @@ class FixedLagSmoother:
         t0 = time.perf_counter()
         rec = self._frame_record_arrays(self._frames[-1])
         t1 = time.perf_counter()
-        solver = self.steady_solver or self.config.solver
-        self._dev_state, outputs, stats = window_step_core(
-            self._dev_state, upload(rec, self.device), *self._noise(), solver
-        )
+        packed = self._dispatch(rec)
         synchronize(self.device)
         t2 = time.perf_counter()
-        pq, pt, vv, departing, stats = unpack_step_outputs(
-            step_output(outputs, stats).cpu().numpy()
-        )
+        pq, pt, vv, departing, stats = unpack_step_outputs(packed.cpu().numpy())
         t3 = time.perf_counter()
         self.timings.append({
             "record_ms": (t1 - t0) * 1e3,
