@@ -8,9 +8,16 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: nvcc builds the hand-written kernels from ``uslam_tpu_torch/csrc``
-   (fast_harris, hamming, preintegrate, jacobi_eigh; one nvcc per source,
-   all started together), g++ the C++ bag scanner from
-   ``uslam_tpu_torch/native``.
+   (fast_harris, hamming, preintegrate, jacobi_eigh, graph_cond; one nvcc
+   per source, all started together), g++ the C++ bag scanner from
+   ``uslam_tpu_torch/native``. Then the probe of the CUDA graph's
+   conditional nodes (``graph_cond_probe``): the torch, CUDA and driver
+   versions; a toy WHILE node holding a nested WHILE and an IF with an else
+   body (cuBLAS, cuSOLVER and ``jacobi_eigh`` inside) graphed against its
+   eager run bit for bit at 5 steps and at 0, with its body runs and
+   launches; the condition kernel against its plain version (a host read
+   of the flag), its time per launch in a graph beside its bound, a WHILE
+   iteration's time and the host read's.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (FAST+Harris on 16 images at each of
    the three pyramid levels of 1920x1080, bit-identical on the interior,
@@ -50,8 +57,9 @@ Phases, each of which raises (exit code != 0) on failure:
    velocity elimination) on a rendered 20 s synthetic dive (100 stereo
    keyframes at 1920x1080, 200 landmarks, 200 Hz IMU); checks the launch
    counts of both kernels (fast_harris once per level per chunk, hamming
-   once per chunk), the LM's error decrease, and the trajectory error
-   against ground truth and the DVL odometry; prints the LM iterations and
+   once per chunk; preintegrate and graph_cond as the LM's code gives them
+   from its iterations and accepted steps), the LM's error decrease, and
+   the trajectory error against ground truth and the DVL odometry; prints the LM iterations and
    final error beside the former layout's (``SLICE_BEFORE``); then where one LM iteration
    goes (host clock per stage, torch.profiler device time of the solve).
 5. Schur vs dense, on the features phase 4 left in the sequence (no front
@@ -90,7 +98,9 @@ Phases, each of which raises (exit code != 0) on failure:
    (``graphed=False``) bit for bit on the pass's last window, whose
    marginal the Jacobi kernel is held to its plain version on and timed
    on; prints per-keyframe host ms (median, p90) of the steady keyframes
-   beside keyframe 10's, the timing split, LM iterations, one steady
+   beside keyframe 10's, the timing split, LM iterations and
+   linearizations per steady keyframe (the window LM a WHILE node that
+   stops when it converges, its re-linearization an IF node), one steady
    keyframe under torch.profiler, and the window's landmarks by
    observation count; (a)'s last window graphed against eager bit for
    bit, and its IMU block against the 24-row path; the CUDA-graph captures
@@ -174,24 +184,27 @@ Phases, each of which raises (exit code != 0) on failure:
    sequence. ``python3 chip_smoke.py --only-surface`` runs phases 1, 2 and
    13 alone.
 
-14. the LM as replayed CUDA graphs (``solvers/lm.py``, ``solvers/compiled.py``):
-   the slice's solve (which must repeat ``SLICE_BEFORE``) and the same
-   slice with the CG reduced solve, the 1k solve (also read every
-   ``LM_BLOCKS_1K`` replays, with no new capture), the 2000-pose banded
-   survey from their initial values, each graphed (one LM step's graph,
-   replayed ``LM_BLOCK`` times between reads) against eager blocks of
-   ``LM_BLOCK`` and of one step, bit for bit (values and statistics), with
-   its host reads per solve (at most ``ceil(iterations / LM_BLOCK) + 1``),
-   captures, replays, host ms per iteration and the device's busy share of
-   one graphed solve; and the online window step of phase 8's pass (c),
-   graphed against eager, bit for bit, with no capture and no LM host
-   read (its three graphs replayed three times). Phase 8 checks that the
-   device-resident passes capture nothing on or after the first steady
-   keyframe and that their window LM reads nothing on the host.
+14. the LM as one CUDA graph per solve (``solvers/lm.py``,
+   ``solvers/compiled.py``): the slice's solve (which must repeat
+   ``SLICE_BEFORE``) and the same slice with the CG reduced solve, the 1k
+   solve, the 2000-pose banded survey, from their initial values, each
+   graphed (the first linearization and error, then a WHILE node over the
+   step, its re-linearization an IF node, the CG a WHILE node inside)
+   against eager blocks of one step, bit for bit (values and statistics),
+   with per solve its host reads (1), graph launches (1), steps run (no
+   masked step), linearizations (1 + the accepted steps, as eager), CG
+   iterations (as eager) and the launches of preintegrate and graph_cond
+   against the counts the code gives; captures, the capture's host ms, host
+   ms per iteration and the device's busy share of one graphed solve; and
+   the online window step of phase 8's pass (c), graphed against eager, bit
+   for bit, with no capture, no host read and no masked step (its three
+   graphs replayed three times). Phase 8 checks that the device-resident
+   passes capture nothing on or after the first steady keyframe and that
+   their window LM reads nothing on the host.
 
 After each of phases 4-12 and 14 the CUDA graphs it captured and replayed
-are printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2,
-the preintegration checks of phase 3, phase 7's solve and graph checks and
+are printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2 (with the
+probe), the preintegration checks of phase 3, phase 7's solve and graph checks and
 phase 14 on inputs made for it (the slice's front end and solve, the
 2000-pose survey at its initial values, phase 8's pass (c)).
 
@@ -293,10 +306,6 @@ JACOBI_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
 JACOBI_SEEDS = {"spd15": 0, "indefinite15": 1, "repeated15": 2, "diagonal15": 3, "zero15": 4,
                 "symmetric2": 5, "symmetric9": 6, "symmetric32": 7}
 JACOBI_BATCH = (64, 15, 8)    # matrices, size, seed
-# Phase 14: replays of the graphed LM step between host reads, timed on the
-# 1k solve besides LM_BLOCK (each step after the stop costs a whole
-# iteration of device time).
-LM_BLOCKS_1K = (2, 8)
 # Phase 8: the online stream's first seconds (5 keyframes per second), the
 # window, and which steady keyframe goes under the profiler.
 ONLINE_SECONDS = 4.0
@@ -403,6 +412,23 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
         fn()
 
     return run(both) - run(flush)
+
+
+def device_span_ms(fn) -> float:
+    """Device ms from before to after one call of ``fn``, which must not
+    wait on the device: CUDA events on the current stream, after a spin
+    kernel that keeps the device busy while the host enqueues."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -820,6 +846,134 @@ def check_jacobi() -> dict:
     worst.update(jacobi_times(torch.tensor(jacobi_case("spd15"), dtype=torch.float32,
                                            device="cuda"), "spd15"))
     return worst
+
+
+def _toy_program(x, n, m):
+    """The probe's program: a loop of ``n`` (a 0-d int64 tensor) steps,
+    each an inner loop of 3 matrix products, then a branch on the step's
+    parity whose taken side runs a Cholesky, a triangular solve and the
+    jacobi_eigh kernel, the other a subtraction; the carry also sums."""
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers.eig import sym_eigh
+
+    def inner(t):
+        y, j = t
+        return (y @ m) * 0.5 + 1.0, j + 1
+
+    def heavy(a):
+        spd = a @ a.T + a.shape[0] * torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+        chol = torch.linalg.cholesky_ex(spd)[0]
+        w, v, _ = sym_eigh(spd[:15, :15].contiguous())
+        z = torch.linalg.solve_triangular(chol, a, upper=False)
+        return z + w.sum() * 1e-3 + v[0, 0] * 0
+
+    def body(s):
+        y, i, acc = s
+        y, _ = compiled.while_loop(lambda t: t[1] < 3, inner, (y, torch.zeros_like(i)),
+                                   name="probe_inner")
+        y = compiled.cond(i % 2 == 0, heavy, lambda a: a - 1.0, y, name="probe_if")
+        return y / (1.0 + y.abs().max()), i + 1, acc + y.sum()
+
+    zero = torch.zeros((), dtype=torch.int64, device=x.device)
+    return compiled.while_loop(lambda s: s[1] < n, body, (x, zero, x.sum() * 0),
+                               name="probe_outer")
+
+
+def graph_cond_probe() -> dict:
+    """Phase 2's probe of the conditional nodes (``csrc/graph_cond.cu``,
+    ``solvers/compiled.py``) on the card: the versions they need, then a
+    WHILE node holding a nested WHILE and an IF with an else body (cuBLAS,
+    cuSOLVER and a hand kernel inside), graphed against its eager run bit
+    for bit, at 5 steps and at 0 (a loop that never runs), the body runs
+    and the launch counts equal; the condition kernel against its plain
+    version (a host read of the flag), and its time in a graph, a WHILE
+    iteration's, and the host read's."""
+    import torch
+
+    from uslam_tpu_torch import cuda_build
+    from uslam_tpu_torch.solvers import compiled
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    nvcc = subprocess.run([cuda_build._nvcc(), "--version"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    log(f"conditional nodes: torch {torch.__version__}, its CUDA {torch.version.cuda}, driver "
+        f"{smi}, nvcc {nvcc!r}; torch._C._cuda_beginAllocateCurrentStreamToPool "
+        f"{hasattr(torch._C, '_cuda_beginAllocateCurrentStreamToPool')}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(32, 32, generator=gen, device="cuda", dtype=torch.float64)
+    m = torch.randn(32, 32, generator=gen, device="cuda", dtype=torch.float64) / 8
+    checks, out = {}, {}
+    for steps in (5, 0):
+        n = torch.tensor(steps, device="cuda")
+        compiled.reset_counts()
+        cuda_build.reset_launch_counts()
+        eager = _toy_program(x, n, m)
+        eager_runs = {k: list(v) for k, v in compiled.runs.items()}
+        eager_launches = dict(cuda_build.launch_counts)
+        graphed = [compiled.call("probe", _toy_program, (x, n, m), ()) for _ in range(2)]
+        compiled.reset_counts()
+        cuda_build.reset_launch_counts()
+        again = compiled.call("probe", _toy_program, (x, n, m), ())
+        compiled.settle_launches()
+        runs = {k: list(v) for k, v in compiled.runs.items()}
+        launches = dict(cuda_build.launch_counts)
+        same = all(torch.equal(a, b) for g in (*graphed, again) for a, b in zip(g, eager))
+        expected = {k: v for k, v in eager_launches.items() if v}
+        got = {k: v for k, v in launches.items() if k != "graph_cond" and v}
+        log(f"  probe, {steps} steps: graphed = eager bit for bit {same}; body runs graphed "
+            f"{runs}, eager {eager_runs}; launches graphed {launches}, eager {eager_launches}")
+        checks[f"conditional nodes: the probe at {steps} steps, graphed = eager bit for bit"] = same
+        checks[f"conditional nodes: the probe at {steps} steps, body runs and launches as "
+               "eager"] = runs == eager_runs and got == expected
+        out[steps] = launches
+    # The kernel against its plain version: an IF node whose bodies write
+    # 1 and 0, at both flags, against the host's read of the flag.
+    err = 0
+    for value in (False, True):
+        flag = torch.tensor(value, device="cuda")
+        got = compiled.call("probe_flag", lambda f: compiled.cond(
+            f, lambda: torch.ones((), device="cuda"), lambda: torch.zeros((), device="cuda")),
+            (flag,), ())
+        err = max(err, abs(float(got) - float(bool(flag))))
+    # Its time: a graph of K more condition kernels after an IF node,
+    # against the graph with none; a WHILE node of N empty iterations.
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def sets(k):
+        def fn(f):
+            if compiled._warming_up():
+                return f
+            node, bodies = compiled._node(compiled._IF, f, "timing")
+            for b in bodies:
+                with compiled._body(node, b, f.device):
+                    f.logical_not()
+            for _ in range(k):
+                compiled._set(node, f)
+            return f
+        return fn
+
+    k = 1000
+    t_k = cuda_ms(lambda: compiled.call(f"probe_sets_{k}", sets(k), (flag,), ()), 20)
+    t_0 = cuda_ms(lambda: compiled.call("probe_sets_0", sets(0), (flag,), ()), 20)
+    kernel_ms = (t_k - t_0) / k
+    n_it = torch.tensor(k, device="cuda")
+    t_loop = cuda_ms(lambda: compiled.call("probe_loop", lambda n: compiled.while_loop(
+        lambda i: i < n, lambda i: i + 1, torch.zeros_like(n)), (n_it,), ()), 20)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(flag)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 200
+    bound, bound_by = bound_ms(1 + 8 + 8, 0)
+    log(f"  condition kernel: {kernel_ms!r} ms per launch in a graph ({k} in one graph, less "
+        f"the graph without them); a WHILE iteration of an empty body {t_loop / k!r} ms; the "
+        f"plain version (a host read of the flag) {plain_ms!r} ms; bound {bound!r} ms "
+        f"({bound_by}: the flag's byte, one count read and written); max abs err {err}")
+    checks["conditional nodes: the condition kernel = the host's read of the flag"] = err == 0
+    return {"checks": checks, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": err, "while_iteration_ms": t_loop / k}
 
 
 def compiled_vs_eager(graph, values, cam, sig, huber, label: str) -> dict:
@@ -1493,14 +1647,24 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
                 kf_launches[k] = {n: kernels.launch_counts[n] - before[n] for n in before}
                 last = (t, i)
         if captures_at is None and online.keyframes == ONLINE_WINDOW + 1:
+            # One host read here, before the steady keyframes: the LM's
+            # body runs so far.
+            compiled.settle_launches()
             captures_at = sum(compiled.captures.values())
             reads_at = sum(compiled.reads.values())
+            runs_at = {k: list(v) for k, v in compiled.runs.items()}
     online.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    compiled.settle_launches()
     launches = dict(kernels.launch_counts)
     steady_captures = sum(compiled.captures.values()) - captures_at
     steady_reads = sum(compiled.reads.values()) - reads_at
+    n_steady = online.keyframes - ONLINE_WINDOW - 1
+
+    def steady_runs(name):
+        return [a - b for a, b in zip(compiled.runs.get(name, [0, 0]),
+                                      runs_at.get(name, [0, 0]))]
     traj = online.trajectory()
     n = len(traj)
     # Steady state: from the second marginalization on (keyframe
@@ -1512,6 +1676,10 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
     split = {k: float(np.median([e[k] for e in timings])) for k in keys
              if timings and all(k in e for e in timings)}
     iters = [e["lm_iters"] for e in timings if "lm_iters" in e]
+    # The steady keyframes' window LMs: the loop's body runs (its
+    # iterations: no masked step) and the re-linearization's branches; each
+    # solve also linearizes once before its loop.
+    lm_steps, (taken, rejected) = steady_runs("lm_step")[0], steady_runs("lm_linearize")
     gt, odom = seq.gt_pos[:n], seq.dvl_pose_pos[:n]
     from uslam_tpu_torch.eval.metrics import ate_rmse
 
@@ -1525,6 +1693,8 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
         "steady_reads": steady_reads, "first_marginal_ms": call_ms.get(ONLINE_WINDOW),
         "max_ms": max(call_ms.values()), "max_at": max(call_ms, key=call_ms.get),
         "kf_launches": kf_launches, "guarded": guard["calls"], "last": last,
+        "steady_lm_iters": lm_steps / n_steady, "steady_linearizations": 1 + taken / n_steady,
+        "steady_lm_iters_sum": sum(iters), "steady_lm_runs": lm_steps,
     }
     front = ("fast_harris", "hamming", "jacobi_eigh")
     log(f"online pass {label}: {out['keyframes']} keyframes ({out['steady']} steady, one more "
@@ -1538,7 +1708,10 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
         f"{[tuple(kf_launches[k][f] for f in front) for k in sorted(kf_launches)]}; steady "
         f"steps run under the sync check: {guard['calls']}")
     log(f"  steady split, medians (ms): {split}; LM iterations, median {out['lm_iters']!r} "
-        f"(max {max(iters) if iters else None})")
+        f"(max {max(iters) if iters else None}); per steady keyframe ({n_steady}): LM iterations "
+        f"{out['steady_lm_iters']!r} (steps run {lm_steps}, the outputs' iterations "
+        f"{sum(iters)}), linearizations {out['steady_linearizations']!r} (1 + {taken} accepted "
+        f"steps over the {n_steady}; {rejected} rejected)")
     log(f"  CUDA graphs: captures so far in the phase {out['captures']}, {steady_captures} of "
         f"them on or after the first steady keyframe; LM host reads in the steady keyframes "
         f"{steady_reads}; preintegrate launches "
@@ -1551,7 +1724,8 @@ def online_pass(label: str, cfg, seq, events, left, right, **mode) -> dict:
         log(f"  one steady keyframe under torch.profiler: host wall {profiled['wall_ms']!r} ms, "
             f"device {profiled['device_ms']!r} ms (busy {profiled['busy']!r}), "
             f"{profiled['kernels']} kernels, {profiled['copies']} copies (the profiled call took "
-            f"{profiled['profiler_s']!r} s in all)")
+            f"{profiled['profiler_s']!r} s in all); the window LM's kernels, inside conditional "
+            f"nodes' bodies, are not in the trace")
     return out
 
 
@@ -1574,24 +1748,26 @@ def steady_step_check(p: dict, cfg, left, right) -> dict:
     sm = o.smoother
     sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
     t, i = p["last"]
-    captures = sum(compiled.captures.values())
     if o.fused:
         pair = torch.from_numpy(np.stack([left[i], right[i]])).cuda()
         rec = fl.upload(o._fused_record(t, None, None), "cuda")
         args = (sm._dev_state, o._fe_state, pair, rec, sm.cam, o.frontend.kvec,
                 o.frontend.ransac_idx, *sig, o._steady_solver, cfg.frontend)
+        captures = sum(compiled.captures.values())
         g = fl.fused_keyframe_step(*args)
+        recaptured = sum(compiled.captures.values()) - captures
         e = fl.fused_keyframe_step(*args, graphed=False)
         leaves_g, leaves_e = [*g[0], *g[1], g[2]], [*e[0], *e[1], e[2]]
         graph, initial = fl.fused_front(*args[:7], cfg.frontend)[:2]
     else:
         rec = fl.upload(sm._frame_record_arrays(sm._frames[-1]), "cuda")
         args = (sm._dev_state, rec, sm.cam, *sig, sm.steady_solver)
+        captures = sum(compiled.captures.values())
         g = fl.window_step(*args)
+        recaptured = sum(compiled.captures.values()) - captures
         e = fl.window_step(*args, graphed=False)
         leaves_g, leaves_e = [*g[0], g[1]], [*e[0], e[1]]
         graph, initial = fl.device_window_graph(sm._dev_state, rec)
-    recaptured = sum(compiled.captures.values()) - captures
     same = all(torch.equal(a, b) for a, b in zip(leaves_g, leaves_e))
     log(f"  {p['label']}: the steady step on its last window, graphed = eager bit for bit: "
         f"{same} ({len(leaves_g)} leaves); captures {recaptured}")
@@ -2837,8 +3013,10 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
             _tree_equal(frames, ref[0]))
         checks[f"multi-device (a): launches per call: pairs fast_harris {levels} hamming 1, "
                f"frames fast_harris {levels} hamming 0"] = (
-            launches["pairs"] == {"fast_harris": levels, "hamming": 1, "preintegrate": 0, "jacobi_eigh": 0}
-            and launches["frames"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0})
+            launches["pairs"] == {"fast_harris": levels, "hamming": 1, "preintegrate": 0,
+                                  "jacobi_eigh": 0, "graph_cond": 0}
+            and launches["frames"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0,
+                                       "jacobi_eigh": 0, "graph_cond": 0})
         checks["multi-device (a): the sharded LM launches preintegrate"] = (
             launches["sharded_lm"]["preintegrate"] > 0)
         return {"checks": checks, "launches": launches,
@@ -3024,7 +3202,8 @@ def surface_phase(cfg) -> dict:
     launches["extract_orb"] = dict(kernels.launch_counts)
     one = extract_orb_batch(img[None], cfg.frontend)
     checks[f"extract_orb: {levels} fast_harris launches, nothing else"] = (
-        launches["extract_orb"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0})
+        launches["extract_orb"] == {"fast_harris": levels, "hamming": 0, "preintegrate": 0,
+                                    "jacobi_eigh": 0, "graph_cond": 0})
     checks["extract_orb bit-identical to extract_orb_batch of one image"] = all(
         torch.equal(a, b[0]) for a, b in zip(kp, one))
 
@@ -3079,7 +3258,8 @@ def surface_phase(cfg) -> dict:
         f"{launches['hamming_distance_matrix']}, max_abs_err vs hamming_plain "
         f"{int((dist - plain).abs().max())}, {hd_ms!r} ms")
     checks["hamming_distance_matrix: 1 hamming launch, nothing else"] = (
-        launches["hamming_distance_matrix"] == {"fast_harris": 0, "hamming": 1, "preintegrate": 0, "jacobi_eigh": 0})
+        launches["hamming_distance_matrix"] == {"fast_harris": 0, "hamming": 1, "preintegrate": 0,
+                                                "jacobi_eigh": 0, "graph_cond": 0})
     checks["hamming_distance_matrix equals hamming_plain"] = (
         dist.shape == SURFACE_HAMMING and torch.equal(dist, plain))
 
@@ -3140,92 +3320,92 @@ def _values_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg,
-                  blocks: tuple = ()) -> dict:
-    """One LM solve graphed (``optimize_lm`` on the card: one step's CUDA
-    graph replayed ``LM_BLOCK`` times between reads of "stopped") against
-    the same solve in eager blocks of ``LM_BLOCK`` and of one step (the
-    former host loop's reads): values and statistics bit for bit; host
-    reads, captures and replays; host ms per iteration (synchronized; the
-    graphed solve after its capture); device busy share of one graphed
-    solve (torch.profiler's device time, device activity only, over the
-    unprofiled solve's wall). ``blocks``: other replay counts between
-    reads, graphed with the same step's graph (no new capture), timed with
-    the masked steps they run."""
+def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg) -> dict:
+    """One LM solve graphed (``optimize_lm`` on the card: one graph, the
+    loop a WHILE node, its re-linearization an IF node, the CG another
+    WHILE node) against the same solve in eager blocks of one step: values
+    and statistics bit for bit; per solve its host reads, graph launches,
+    steps run (masked = steps - iterations), linearizations (1 + the
+    accepted steps), CG iterations and the kernel launches its bodies ran
+    against the counts the code gives; host ms per iteration
+    (synchronized; the graphed solve after its capture) and the capture's
+    host ms; the graph's span on the device (CUDA events around
+    ``solve_lm``, which reads nothing) over the solve's host wall. The
+    device's busy share is not measured: torch.profiler records no kernel
+    inside a conditional node's body."""
     import torch
 
+    from uslam_tpu_torch.frontend import kernels
     from uslam_tpu_torch.solvers import compiled
-    from uslam_tpu_torch.solvers.lm import LM_BLOCK, optimize_lm
+    from uslam_tpu_torch.solvers.lm import optimize_lm, solve_lm
 
     def run(**kw):
+        compiled.reset_counts()
+        kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = optimize_lm(graph, initial, cam, *sig, solver_cfg, huber, **kw)
         torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {"reads": sum(compiled.reads.values()), "launches": dict(kernels.launch_counts),
+                  "replays": dict(compiled.replays), "captures": dict(compiled.captures),
+                  "capture_ms": dict(compiled.capture_ms),
+                  "runs": {k: list(v) for k, v in compiled.runs.items()}}
+        return out, ms, counts
 
-    compiled.reset_counts()
-    (v_first, s_first), first_ms = run()
-    captured = dict(compiled.captures)
-    first_capture_ms = dict(compiled.capture_ms)
-    compiled.reset_counts()
-    (v_g, s_g), graphed_ms = run()
-    reads = compiled.reads.get("lm_step", 0) + 1           # + the statistics' read
-    replays = compiled.replays.get("lm_step", 0)
-    recaptured = sum(compiled.captures.values())
-    (v_e, s_e), eager_ms = run(graphed=False, block=LM_BLOCK)
-    (v_1, s_1), eager1_ms = run(graphed=False, block=1)
-    prof = profile_call(lambda: optimize_lm(graph, initial, cam, *sig, solver_cfg, huber))
+    (v_first, s_first), first_ms, first = run()
+    (v_g, s_g), graphed_ms, g = run()
+    (v_1, s_1), eager1_ms, e = run(graphed=False, block=1)
+    span_ms = device_span_ms(lambda: solve_lm(graph, initial, cam, *sig, solver_cfg, huber))
     it = s_g.iterations
-    same = (s_g == s_first == s_e == s_1
-            and all(_values_equal(v_g, v) for v in (v_first, v_e, v_1)))
-    bound = -(-it // LM_BLOCK) + 1
+    same = s_g == s_first == s_1 and all(_values_equal(v_g, v) for v in (v_first, v_1))
+    steps = g["runs"].get("lm_step", [0])[0]
+    accepts, rejects = g["runs"].get("lm_linearize", [0, 0])
+    cg = g["runs"].get("cg", [0])[0]
+    # From the code: the first linearization and error outside the loop,
+    # one error per step, one linearization per taken step; the condition
+    # kernel once before the loop, then per step the IF's and the loop's,
+    # and per CG solve its loop's first test and one per CG iteration.
+    expected = {"preintegrate": 2 + it + accepts,
+                "graph_cond": 1 + 2 * it + (it + cg if cg else 0)}
+    got = {k: g["launches"][k] for k in expected}
     log(f"  {label}: {it} LM iterations, final error {s_g.final_error!r}, converged "
-        f"{s_g.converged}; graphed = eager blocks of {LM_BLOCK} = eager blocks of 1, values and "
-        f"statistics bit for bit: {same}")
-    log(f"    host reads per solve {reads} (bound ceil({it}/{LM_BLOCK}) + 1 = {bound}; eager "
-        f"blocks of 1: 1 per iteration + 1 = {it + 1}); step replays {replays} "
-        f"({replays - it} masked steps); captures {captured} on the first solve (host ms "
-        f"{first_capture_ms}), {recaptured} on the second")
+        f"{s_g.converged}; graphed = eager blocks of 1, values and statistics bit for bit: "
+        f"{same}")
+    log(f"    per graphed solve: host reads {g['reads']} (eager blocks of 1: {e['reads']}), graph "
+        f"launches {g['replays']}, steps run {steps} ({steps - it} masked), linearizations "
+        f"{1 + accepts} = 1 + {accepts} accepted ({rejects} rejected), CG iterations {cg} "
+        f"(eager {e['runs'].get('cg', [0])[0]}); launches {got}, from the code {expected}; "
+        f"captures {first['captures']} on the first solve (host ms {first['capture_ms']}), "
+        f"{g['captures']} on the second")
     log(f"    host ms per iteration: graphed {graphed_ms / it!r} (first solve, with its capture, "
-        f"{first_ms / it!r}), eager blocks of {LM_BLOCK} {eager_ms / it!r}, eager blocks of 1 "
-        f"{eager1_ms / it!r}; solve ms graphed {graphed_ms!r}, eager {eager1_ms!r}")
-    # The profiler's own cost grows with the kernels it records (~10^5 in a
-    # solve), so the busy share divides the profiled device time by the
-    # unprofiled graphed solve's wall.
-    busy = prof["device_ms"] / graphed_ms
-    log(f"    one graphed solve under torch.profiler: device {prof['device_ms']!r} ms in "
-        f"{prof['kernels']} kernels and {prof['copies']} copies: busy {busy!r} of the unprofiled "
-        f"graphed solve (of the profiled one's host wall {prof['wall_ms']!r} ms: {prof['busy']!r})")
-    sweep = {}
-    for k in blocks:
-        compiled.reset_counts()
-        (v_k, s_k), ms = run(block=k)
-        rep = compiled.replays.get("lm_step", 0)
-        sweep[k] = {"ms": ms, "masked": rep - it, "reads": compiled.reads.get("lm_step", 0) + 1,
-                    "same": s_k == s_g and _values_equal(v_k, v_g),
-                    "captures": sum(compiled.captures.values())}
-        log(f"    {k} replays per read: solve {ms!r} ms ({ms / it!r} per iteration), {rep} "
-            f"replays, {rep - it} masked steps, {sweep[k]['reads']} host reads, "
-            f"{sweep[k]['captures']} captures, bit-identical {sweep[k]['same']}")
+        f"{first_ms / it!r}), eager blocks of 1 {eager1_ms / it!r}; solve ms graphed "
+        f"{graphed_ms!r}, eager {eager1_ms!r}")
+    log(f"    the graph on the device (CUDA events, copies in and out included): {span_ms!r} ms, "
+        f"{span_ms / graphed_ms!r} of the graphed solve's host wall")
     checks = {
-        f"LM {label}: graphed = eager blocks (of {LM_BLOCK} and of 1), bit for bit": same,
-        f"LM {label}: host reads per solve <= ceil(iterations / {LM_BLOCK}) + 1": reads <= bound,
-        f"LM {label}: no capture on a second solve of the same shapes": recaptured == 0,
+        f"LM {label}: graphed = eager blocks of 1, bit for bit": same,
+        f"LM {label}: one graph launch and one host read per solve, no masked step": (
+            g["replays"] == {"lm_solve": 1} and g["reads"] == 1 and steps == it),
+        f"LM {label}: linearizations 1 + accepted steps, as eager": (
+            g["runs"].get("lm_linearize") == e["runs"].get("lm_linearize")
+            and accepts + rejects == it),
+        f"LM {label}: CG iterations graphed = eager": cg == e["runs"].get("cg", [0])[0],
+        f"LM {label}: launches in the WHILE and IF bodies as the code gives them": got == expected,
+        f"LM {label}: no capture on a second solve of the same shapes": not g["captures"],
     }
-    for k, r in sweep.items():
-        checks[f"LM {label}: {k} replays per read bit-identical, no new capture"] = (
-            r["same"] and r["captures"] == 0)
-    return {"checks": checks, "iterations": it, "final_error": s_g.final_error, "reads": reads,
-            "graphed_ms": graphed_ms, "eager_ms": eager_ms, "eager1_ms": eager1_ms,
-            "busy": busy, "sweep": sweep}
+    return {"checks": checks, "iterations": it, "final_error": s_g.final_error,
+            "reads": g["reads"], "graphed_ms": graphed_ms, "eager1_ms": eager1_ms,
+            "span_ms": span_ms,
+            "linearizations": 1 + accepts, "capture_ms": first["capture_ms"].get("lm_solve"),
+            "cg": cg}
 
 
 def window_graph_check(online_c, cfg) -> dict:
     """The device-resident window step of phase 8's pass (c) on its last
-    window: graphed (the "window_graph", "lm_step" and "window_tail" graphs
-    the smoother captured) against eager, bit for bit; the replays' host
-    reads and host ms."""
+    window: graphed (the "window_graph", "lm_solve" and "window_tail" graphs
+    the smoother captured) against eager, bit for bit; the replays, host
+    reads, LM iterations and linearizations, host ms."""
     import torch
 
     from uslam_tpu_torch.solvers import compiled
@@ -3235,9 +3415,13 @@ def window_graph_check(online_c, cfg) -> dict:
     rec = upload(sm._frame_record_arrays(sm._frames[-1]), "cuda")
     args = (sm._dev_state, rec, sm.cam, cfg.noise.dvl_sigma, cfg.noise.stereo_sigma,
             cfg.imu.gravity, sm.steady_solver)
+    compiled.settle_launches()
     compiled.reset_counts()
     t_g, graphed = _median_ms(lambda: window_step(*args))
     counts = (dict(compiled.captures), dict(compiled.replays), dict(compiled.reads))
+    compiled.settle_launches()
+    runs = {k: list(v) for k, v in compiled.runs.items()}
+    span_ms = device_span_ms(lambda: window_step(*args))
     t_e, eager = _median_ms(lambda: window_step(*args, graphed=False))
     leaves_g, leaves_e = [*graphed[0], graphed[1]], [*eager[0], eager[1]]
     same = all(torch.equal(a, b) for a, b in zip(leaves_g, leaves_e))
@@ -3245,16 +3429,16 @@ def window_graph_check(online_c, cfg) -> dict:
     log(f"  online window step (pass (c)'s last window, max_iterations "
         f"{sm.steady_solver.max_iterations}, {iterations} LM iterations): "
         f"graphed = eager bit for bit: {same}; host ms graphed {t_g!r}, eager {t_e!r} (median "
-        f"of 3); captures {counts[0]}, replays {counts[1]}, LM host reads {counts[2]}")
-    steps = 3 * sm.steady_solver.max_iterations
+        f"of 3); the graphed step's three graphs on the device (CUDA events) {span_ms!r} ms; "
+        f"captures {counts[0]}, replays {counts[1]}, host reads {counts[2]}; body runs over the "
+        f"3 graphed steps {runs}")
     return {"checks": {"online window step: graphed = eager, bit for bit": same,
-                       f"online window step: replays (window_graph 3, lm_step {steps}, "
-                       "window_tail 3), no capture, no LM host read":
+                       "online window step: replays (window_graph 3, lm_solve 3, window_tail 3), "
+                       "no capture, no host read, no masked step":
                        counts[0] == {} and counts[2] == {}
-                       and counts[1].get("window_graph") == 3
-                       and counts[1].get("lm_step") == steps
-                       and counts[1].get("window_tail") == 3},
-            "graphed_ms": t_g, "eager_ms": t_e}
+                       and counts[1] == {"window_graph": 3, "lm_solve": 3, "window_tail": 3}
+                       and runs.get("lm_step", [0])[0] == 3 * iterations},
+            "graphed_ms": t_g, "eager_ms": t_e, "span_ms": span_ms}
 
 
 def graph_cache_summary() -> dict:
@@ -3264,18 +3448,16 @@ def graph_cache_summary() -> dict:
 
     out: dict = {}
     for key, entry in compiled._CACHE.items():
-        name = key[1] if key[0] == "loop" else key[0]
-        bufs = entry.inputs[0] + entry.inputs[1] if key[0] == "loop" else entry.inputs
-        n, mib = out.get(name, (0, 0.0))
-        out[name] = (n + 1, mib + sum(b.numel() * b.element_size() for b in bufs) / 2**20)
+        n, mib = out.get(key[0], (0, 0.0))
+        out[key[0]] = (n + 1, mib + sum(b.numel() * b.element_size() for b in entry.inputs) / 2**20)
     return out
 
 
 def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
-    """Phase 14: the LM as replayed CUDA graphs, against eager blocks, on
-    the slice (which must repeat ``SLICE_BEFORE``) and the slice with the
-    CG reduced solve, the 1k solve (also read every ``LM_BLOCKS_1K``
-    replays), the 2000-pose banded survey and the online window step."""
+    """Phase 14: the LM as one CUDA graph per solve (WHILE and IF nodes),
+    against eager blocks of one step, on the slice (which must repeat
+    ``SLICE_BEFORE``) and the slice with the CG reduced solve, the 1k
+    solve, the 2000-pose banded survey and the online window step."""
     from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.graph.packing import pack_sequence
     from uslam_tpu_torch.interop import to_port
@@ -3284,7 +3466,7 @@ def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
     import torch
 
     t_phase = time.perf_counter()
-    log("the LM as replayed CUDA graphs (graphed against eager blocks):")
+    log("the LM as one CUDA graph per solve, its loops WHILE nodes (graphed against eager):")
     sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
     cam = StereoCamera.from_config(cfg.camera, device="cuda")
     g_np, v_np = pack_sequence(seq, cfg)[:2]
@@ -3293,8 +3475,8 @@ def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
     checks = dict(slice_["checks"])
     checks[f"LM slice: {SLICE_BEFORE} iterations and final error, as before"] = (
         (slice_["iterations"], slice_["final_error"]) == SLICE_BEFORE)
-    # CG inside a captured step runs all its blocks, the frozen ones
-    # leaving its state as it is; eagerly it stops at its test.
+    # CG inside the graph is a WHILE node nested in the LM's body, stopping
+    # at its test; eagerly it reads the test once per block of CG_BLOCK.
     cg = lm_graph_pair("slice, CG reduced solve", to_port(g_np, "cuda"), to_port(v_np, "cuda"),
                        cam, sig, cfg.noise.stereo_huber_delta,
                        dataclasses.replace(cfg.solver, reduced_solver="cg"))
@@ -3302,7 +3484,7 @@ def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
     c1k = one_k["cfg"]
     r1k = lm_graph_pair("1k", one_k["result"].graph, to_port(one_k["initial"], "cuda"),
                         StereoCamera.from_config(c1k.camera, device="cuda"), sig,
-                        c1k.noise.stereo_huber_delta, c1k.solver, blocks=LM_BLOCKS_1K)
+                        c1k.noise.stereo_huber_delta, c1k.solver)
     checks.update(r1k["checks"])
     cs = survey["cfg"]
     rs = lm_graph_pair("survey 2000 (banded)", survey["graph"], survey["initial"],
@@ -3363,7 +3545,7 @@ def only_parallel(device_name: str) -> int:
     return finish_alone(checks, device_name)
 
 
-def only_compiled(device_name: str) -> int:
+def only_compiled(device_name: str, probe_checks: dict) -> int:
     """``--only-compiled``: the preintegration kernel against its plain
     version and oracle (phase 3's part), the 1k solve and its graph checks
     and per-iteration times (phase 7's part), then phase 14 on inputs made
@@ -3383,7 +3565,8 @@ def only_compiled(device_name: str) -> int:
     log(f"1k solve: {one_k['result'].metrics['lm_iterations']} LM iterations in "
         f"{one_k['result'].metrics['solve_seconds']!r} s; launches {dict(kernels.launch_counts)}")
     log_graphs("the 1k solve")
-    checks = compiled_1k(one_k)["checks"]
+    checks = dict(probe_checks)
+    checks.update(compiled_1k(one_k)["checks"])
     seq = generate_synthetic_sequence(SyntheticSpec(duration=20.0, odom_drift_rate=0.05),
                                       cfg.camera, render_images=True, omit_features=True)
     m = run_sequence(seq, cfg, device="cuda").metrics
@@ -3448,10 +3631,11 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"build: C++ bag scanner {Path(native.load()._name).name} in "
         f"{time.perf_counter() - t0:.2f} s")
+    probe = graph_cond_probe()
     if sys.argv[1:] == ["--only-parallel"]:
         return only_parallel(device_name)
     if sys.argv[1:] == ["--only-compiled"]:
-        return only_compiled(device_name)
+        return only_compiled(device_name, probe["checks"])
     if sys.argv[1:] == ["--only-surface"]:
         return only_surface(device_name)
     if sys.argv[1:]:
@@ -3563,6 +3747,9 @@ def main() -> int:
     # ---- 4. the slice, default config: run_sequence on the card ------------
     n_frames = len(seq.image_t)
     n_chunks = math.ceil(n_frames / chunk)
+    from uslam_tpu_torch.solvers import compiled
+
+    log_graphs("before phase 4")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     result = run_sequence(seq, cfg, device="cuda")
@@ -3570,13 +3757,23 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     m = result.metrics
+    accepts = compiled.runs.get("lm_linearize", [0])[0]
+    # From the LM's code, on the first solve of these shapes: the capture's
+    # warm-up runs the first linearization and error, one step's error and
+    # both branches of its re-linearization (4 preintegrate launches); the
+    # replay the first linearization and error, one error per iteration and
+    # one linearization per accepted step, and the condition kernel once
+    # before the loop and twice per iteration (the IF's, the loop's).
+    solve_launches = {"preintegrate": 4 + 2 + m["lm_iterations"] + accepts,
+                      "graph_cond": 1 + 2 * m["lm_iterations"]}
     n_poses, n_rows = m["num_poses"], m["num_landmarks"]
     ate_odom = ate_rmse(result.odom_compare, seq.gt_pos[:n_poses])
     s = result.graph.stereo
     n_lm_obs = int(torch.unique(s.lm_idx[s.mask > 0]).numel())
     log("slice (default SolverConfig: Schur + velocity elimination):")
     log(f"  launches: {launches} expected fast_harris={n_chunks * levels} "
-        f"hamming={n_chunks} ({n_chunks} chunks of {chunk}, {levels} levels)")
+        f"hamming={n_chunks} ({n_chunks} chunks of {chunk}, {levels} levels), {solve_launches} "
+        f"({accepts} accepted LM steps)")
     log(f"  frontend: {m['frontend_frames']} frames in {m['frontend_seconds']!r} s "
         f"= {m['frontend_frames'] / m['frontend_seconds']!r} frames/s")
     obs_per_lm = np.bincount(s.lm_obs_mask.sum(1).long().cpu().numpy())
@@ -3597,7 +3794,8 @@ def main() -> int:
             (m["lm_iterations"], m["final_error"]) == SLICE_BEFORE),
         "fast_harris launched once per level per chunk": launches["fast_harris"] == n_chunks * levels,
         "hamming launched once per chunk": launches["hamming"] == n_chunks,
-        "preintegrate launched by the solve": launches["preintegrate"] > 0,
+        f"the LM's launches as its code gives them ({accepts} accepted steps): {solve_launches}": (
+            {k: launches[k] for k in solve_launches} == solve_launches),
         "every frame went through the front end": m["frontend_frames"] == n_frames,
         "trajectory shape and finite": traj.shape == (n_poses, 3) and bool(np.isfinite(traj).all()),
         "final_error < initial_error": m["final_error"] < m["initial_error"],
@@ -3808,6 +4006,30 @@ def main() -> int:
                 "spd15_ms": jac["ms"], "spd15_library_ms": jac["library_ms"],
                 "bit_identical_to_plain": jac["same"] and all(
                     r["same"] for r in online["jacobi"].values()),
+            },
+            {
+                "name": "graph_cond", "route": "cuda",
+                "source": "uslam_tpu_torch/csrc/graph_cond.cu",
+                # No Pallas kernel: the LM's lax.while_loop (and, nested
+                # in it, its lax.cond, :178, and the CG's while_loop,
+                # uslam_tpu/solvers/schur.py:349), which XLA keeps on the
+                # device; here the handles of a CUDA graph's WHILE and IF
+                # nodes, set from a device flag.
+                "replaces": "uslam_tpu/solvers/lm.py:229",
+                # Phase 4's solve: once before the loop, twice per LM
+                # iteration (the IF's, the loop's).
+                "launches": launches["graph_cond"],
+                # Against its plain version (a host read of the flag), both
+                # values; the probe's graphs against their eager runs, bit
+                # for bit (phase 2's checks).
+                "max_abs_err": probe["max_abs_err"],
+                # Per launch inside a graph; the plain version a host read.
+                **{k: probe[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "share": probe["bound_ms"] / probe["ms"],
+                "library_ms": None,  # no PyTorch call sets a graph's conditional handle
+                "while_iteration_ms": probe["while_iteration_ms"],
+                "online_pass_launches": {p["label"]: p["launches"]["graph_cond"]
+                                         for p in online["passes"]},
             },
         ]
     }

@@ -212,7 +212,11 @@ def test_bias_solve_of_a_singular_system_matches_jax():
     ``jnp.linalg.solve`` values (NaN and Inf in the same places); rank
     deficient only in exact arithmetic, LAPACK's LU in the port finds a
     tiny pivot and returns huge finite values where JAX's gives NaN and
-    -Inf (ROADMAP C8). The LM rejects the step either way."""
+    -Inf. Not a fault of the port (ROADMAP C8): both LUs take the same
+    pivots, and JAX's, like scipy's ``lu_factor``, ends on a pivot of
+    exactly 0.0 where torch's (MKL) ends on 1.84e-16, the LAPACK builds'
+    rounding on a matrix singular to working precision. The LM rejects
+    the step either way."""
     rng = np.random.default_rng(0)
     A = rng.standard_normal((6, 5))
     near = A @ A.T

@@ -146,7 +146,7 @@ def test_plain_versions_do_not_count_launches():
     kernels.hamming(a, a)
     sym_eigh(torch.eye(3))
     assert kernels.launch_counts == {"fast_harris": 0, "hamming": 0, "preintegrate": 0,
-                                     "jacobi_eigh": 0}
+                                     "jacobi_eigh": 0, "graph_cond": 0}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The port's device-resident LM (uslam_tpu_torch/solvers/lm.py: the state
-as 0-d tensors, the step in ``torch.where``, blocks of masked steps)
-against the JAX package's ``optimize_lm`` (its ``lax.while_loop``) in
+as 0-d tensors, the step in ``torch.where`` with its re-linearization under
+``compiled.cond``, the loop ``compiled.while_loop`` over eager blocks of
+steps) against the JAX package's ``optimize_lm`` (its ``lax.while_loop``) in
 float64, on one small graph: a 2 s synthetic dive, 10 poses, packed by the
 JAX package.
 
@@ -23,6 +24,8 @@ Tolerances, with their reasons:
   every bit of the state as it was), on the case that stops mid-block; the
   other cases run once, in blocks of 8, and their masked steps must leave
   the state as the stop left it;
+- linearizations: exactly 1 + the accepted steps, JAX's ``lax.cond`` count
+  (a rejected or masked step linearizes nothing);
 - the float32 decisions: exact, against numpy's float32 (NumPy 2 rounds a
   Python float to float32 before it meets a float32 scalar) and JAX's
   weakly typed float32.
@@ -44,7 +47,7 @@ from uslam_tpu.io.synthetic import SyntheticSpec, generate_synthetic_sequence
 from uslam_tpu.solvers import lm as jlm
 from uslam_tpu_torch.graph.values import Values
 from uslam_tpu_torch.interop import config_to_port, to_port
-from uslam_tpu_torch.solvers import lm
+from uslam_tpu_torch.solvers import compiled, lm
 
 torch.set_num_threads(1)
 
@@ -157,34 +160,49 @@ def monkeypatch_module():
     mp.undo()
 
 
-def _port_run(small, name, block):
+def _port_run(small, name, block, linearizations=None):
     """The case through the port's solve_lm on the CPU in blocks of
-    ``block``; (final values, stats, every state after a step)."""
+    ``block``; (final values, stats, every state after a step). With
+    ``linearizations`` (a list), the solve's calls of linearize_graph are
+    appended to it."""
     cfg, g64, starts = small
     _, ct = _cams(cfg)
     start, settings = CASES[name]
     solver = config_to_port(dataclasses.replace(BASE, **settings))
     states: list = []
-    plain_step = lm._eager_step
+    plain_step, plain_linearize = lm.lm_step, lm.linearize_graph
 
     def recording_step(*args, **kwargs):
-        state, stopped = plain_step(*args, **kwargs)
+        state = plain_step(*args, **kwargs)
         states.append(state)
-        return state, stopped
+        return state
 
-    lm._eager_step = recording_step
+    def counting_linearize(*args, **kwargs):
+        if linearizations is not None:
+            linearizations.append(1)
+        return plain_linearize(*args, **kwargs)
+
+    lm.lm_step, lm.linearize_graph = recording_step, counting_linearize
     try:
         values, stats = lm.solve_lm(to_port(g64, "cpu"), to_port(starts[start], "cpu"), ct,
                                     *SIGMAS, solver, block=block)
     finally:
-        lm._eager_step = plain_step
+        lm.lm_step, lm.linearize_graph = plain_step, plain_linearize
     return values, stats, states
 
 
 @pytest.fixture(scope="module")
 def port_runs(small):
-    """Each case through the port in blocks of 8, run once for the file."""
-    return {name: _port_run(small, name, 8) for name in CASES}
+    """Each case through the port in blocks of 8, run once for the file:
+    (values, stats, states, linearizations, the runs of the loop's body
+    and of the re-linearization's branches)."""
+    out = {}
+    for name in CASES:
+        compiled.reset_counts()
+        lins: list = []
+        out[name] = (*_port_run(small, name, 8, lins), len(lins),
+                     {k: list(v) for k, v in compiled.runs.items()})
+    return out
 
 
 def _stop(state, settings) -> str:
@@ -206,7 +224,7 @@ def _leaves_equal(a, b) -> bool:
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_lm_state_matches_jax(small, jax_runs, port_runs, name):
     ref = jax_runs[name]
-    _, stats, states8 = port_runs[name]
+    _, stats, states8, linearizations, runs = port_runs[name]
     it = int(stats.iterations)
     # Blocks of 8 run masked steps after the stop; they change no bit.
     assert len(states8) % 8 == 0 and 1 <= it <= len(states8)
@@ -224,6 +242,11 @@ def test_lm_state_matches_jax(small, jax_runs, port_runs, name):
     assert (_stop(ours[-1], settings), ours[-1][2]) == EXPECTED[name]
     assert it == ref[-1][2] and float(stats.final_lambda) == ref[-1][1]
     accepts = sum(b[0] < a[0] for a, b in zip(ref, ref[1:]))
+    # lax.cond: the first linearization, then one per accepted step; the
+    # loop's body ran once per block of 8, its branch once per step.
+    assert linearizations == 1 + accepts
+    assert runs["lm_linearize"] == [accepts, len(states8) - accepts]
+    assert runs["lm_step"] == [len(states8) // 8, 0]
     if name in ("rejects", "lambda blow-up", "NaN candidate"):
         assert accepts < len(ref) - 1          # at least one reject
     if name == "NaN candidate":
@@ -234,7 +257,7 @@ def test_blocks_of_one_and_eight_agree(small, port_runs):
     """The case that stops in the middle of a block of 8 (three masked
     steps after it): blocks of 1 give every bit of blocks of 8."""
     v1, s1, states1 = _port_run(small, "max_iterations mid-block", 1)
-    v8, s8, states8 = port_runs["max_iterations mid-block"]
+    v8, s8, states8 = port_runs["max_iterations mid-block"][:3]
     assert len(states1) == int(s1.iterations) == 5 and len(states8) == 8
     for a, b in zip((*v1, *s1), (*v8, *s8)):
         assert torch.equal(a, b)

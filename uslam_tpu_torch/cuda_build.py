@@ -12,6 +12,11 @@ wrapper             CUDA source                 replaces (JAX package)
 ``jacobi_eigh``     ``csrc/jacobi_eigh.cu``     ``jnp.linalg.eigh`` of the
                                                 online window step's marginal
                                                 (``solvers/eig.py``)
+``graph_cond``      ``csrc/graph_cond.cu``      the ``lax.while_loop`` and
+                                                ``lax.cond`` of the LM and
+                                                its CG (conditional nodes of
+                                                a CUDA graph,
+                                                ``solvers/compiled.py``)
 ==================  ==========================  ==============================
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
@@ -24,7 +29,10 @@ itself. A failed build raises; nothing falls back.
 ``launch_counts`` counts the kernel launches of each wrapper since the
 last :func:`reset_launch_counts`. Only a launch of a CUDA kernel counts;
 the plain versions never do. A replayed CUDA graph
-(:mod:`uslam_tpu_torch.solvers.compiled`) adds the launches it holds.
+(:mod:`uslam_tpu_torch.solvers.compiled`) adds the launches it holds; those
+inside its conditional nodes' bodies, which run as often as the device
+decides, are added when the host next reads the node's counts
+(``compiled.read``, ``compiled.settle_launches``, and here before a reset).
 """
 
 from __future__ import annotations
@@ -46,7 +54,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launch_counts = {"fast_harris": 0, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0}
+launch_counts = {"fast_harris": 0, "hamming": 0, "preintegrate": 0, "jacobi_eigh": 0,
+                 "graph_cond": 0}
+# Run before a reset: they add the launches still counted on the device.
+before_reset: list = []
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -54,6 +65,8 @@ build_log = ""
 
 
 def reset_launch_counts() -> None:
+    for hook in before_reset:
+        hook()
     for name in launch_counts:
         launch_counts[name] = 0
 
@@ -74,6 +87,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         "uslam_hamming": [vp, vp, vp, i32, i32, i32, vp],
         "uslam_preintegrate": [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
         "uslam_jacobi_eigh": [i32, vp, vp, vp, vp, i32, i32, i32, vp],
+        "uslam_cond_set": [vp, ctypes.c_ulonglong, vp, vp],
+        "uslam_cond_node": [vp, i32, vp, vp, ctypes.POINTER(ctypes.c_ulonglong),
+                            ctypes.POINTER(vp)],
+        "uslam_stream_create": [ctypes.POINTER(vp)],
+        "uslam_capture_to": [vp, vp],
+        "uslam_capture_end": [vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

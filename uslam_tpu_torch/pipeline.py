@@ -75,8 +75,9 @@ def require_full_float32(device: torch.device) -> None:
 
 def run_solver(graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
                solver_cfg: SolverConfig, huber_delta=None):
-    """LM entry (:func:`uslam_tpu_torch.solvers.lm.optimize_lm`: replayed
-    CUDA graphs on the card), in full float32 (:func:`require_full_float32`).
+    """LM entry (:func:`uslam_tpu_torch.solvers.lm.optimize_lm`: one CUDA
+    graph per solve on the card, its loop a WHILE node), in full float32
+    (:func:`require_full_float32`).
     ``solver_cfg.debug_nans`` checks every LM stage for non-finite values
     (:mod:`uslam_tpu_torch.solvers.lm`)."""
     require_full_float32(initial.pose_trans.device)

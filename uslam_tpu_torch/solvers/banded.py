@@ -330,12 +330,21 @@ def block_tridiag_factor(D, O):
     return L
 
 
+def _cho_solve(r, L):
+    """t^-1 r from t's lower Cholesky factor L: two triangular solves, as
+    the JAX package's ``cho_solve``. Not ``torch.cholesky_solve``: its
+    cuSOLVER kernels may not sit in a CUDA graph's conditional body (the
+    graph does not instantiate), and the LM's loop is one."""
+    return torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, r, upper=False), upper=True)
+
+
 def _backward(L, u, O):
     """Backward Thomas sweep: x_k = u_k - t_k^-1 O_k x_{k+1}."""
     x = torch.empty_like(u)
     x[-1] = u[-1]
     for k in range(u.shape[0] - 2, -1, -1):
-        x[k] = u[k] - torch.cholesky_solve(O[k] @ x[k + 1], L[k])
+        x[k] = u[k] - _cho_solve(O[k] @ x[k + 1], L[k])
     return x
 
 
@@ -353,7 +362,7 @@ def block_tridiag_factor_apply(D, O, rhs):
             t = t - w.T @ w
             r = r - O[k - 1].T @ u[k - 1]
         L[k] = cholesky_or_nan(t)
-        u[k] = torch.cholesky_solve(r, L[k])
+        u[k] = _cho_solve(r, L[k])
     return L, _backward(L, u, O)
 
 
@@ -362,7 +371,7 @@ def block_tridiag_apply(L, O, rhs):
     u = torch.empty_like(rhs)
     for k in range(L.shape[0]):
         r = rhs[k] - O[k - 1].T @ u[k - 1] if k else rhs[k]
-        u[k] = torch.cholesky_solve(r, L[k])
+        u[k] = _cho_solve(r, L[k])
     return _backward(L, u, O)
 
 

@@ -1,10 +1,12 @@
 """CUDA graphs of the linearization, the error and the LM: the port's
-counterpart of ``jax.jit``.
+counterpart of ``jax.jit``, ``jax.lax.while_loop`` and ``jax.lax.cond``.
 
 The JAX package runs the LM as one compiled device program: a
 ``lax.while_loop`` under ``jax.jit`` (``_jitted_lm`` in
 ``uslam_tpu/pipeline.py``, the window steps in
-``uslam_tpu/solvers/fixed_lag.py``). Run eagerly from Python, each call of
+``uslam_tpu/solvers/fixed_lag.py``), whose step re-linearizes under
+``lax.cond`` and whose CG is another ``lax.while_loop``. Run eagerly from
+Python, each call of
 :func:`uslam_tpu_torch.solvers.linearize.linearize_graph`, ``graph_error``
 or an LM iteration is thousands of small launches, each paid for on the
 host. Here each is captured once per input shape into a
@@ -13,59 +15,88 @@ host. Here each is captured once per input shape into a
 :func:`call` keeps a cache keyed as ``jax.jit`` keys its compilations:
 
 - the input trees' structure (NamedTuples and tuples, by type), each
-  tensor leaf's shape, dtype and device, and the value of every leaf that
-  is not a tensor;
+  tensor leaf's shape, dtype, device and strides, and the value of every
+  leaf that is not a tensor;
 - the static scalars (sigmas, gravity, Huber delta, a solver config).
 
 The camera's intrinsics are tensor leaves and are copied in like the rest,
 so a call with another camera of the same shapes replays the same graph.
 
-An entry holds static input tensors (outside the graph's memory pool), the
-graph, captured after one warm-up call on a side stream, and its static
-outputs. A call copies the leaves into the static inputs, replays, and
-returns clones of the outputs, so a result outlives the next replay of the
+An entry holds static input tensors (outside the graph's memory pool, in
+the layout of the call's leaves), the graph, captured after one warm-up
+call on a side stream, and its static outputs. A call copies the leaves
+into the static inputs, replays, and returns clones of the outputs, so a result outlives the next replay of the
 same entry (the LM keeps one linearization across several error replays;
 the marginal linearizes again after the LM). Every entry on a device
 shares one memory pool: the graphs run one at a time on one stream and
 hold no state between replays outside their static inputs, and each
 replay's outputs are cloned before another graph runs.
 
-:func:`loop` is the ``lax.while_loop``: one step captured once, whose
-carried state lives in the graph's static inputs. The step writes its new
-state back into them inside the graph, so the host replays it with no
-copy in between, and reads one word, "stopped", after every block of
-replays.
+:func:`while_loop` and :func:`cond` take the JAX primitives' arguments.
+Outside a capture they run eagerly: the loop reads its condition on the
+host before every iteration, ``cond`` reads its predicate and runs one
+branch (the CPU, ``debug_nans``, ``graphed=False``). Inside a capture they
+become the graph's conditional nodes (``csrc/graph_cond.cu``): a WHILE
+node, whose body ends by setting the loop's handle from the condition of
+the new carry, and an IF node with an else body, its handle set from the
+predicate. The carry lives in buffers made before the node, which the body
+writes; the branches' results in buffers the then-body makes and the
+else-body writes. A body is captured from a stream of its own per depth of
+nesting, its allocations in a memory pool of that depth, so nodes nest (the
+CG's loop inside the LM's). While a graph's body is warmed up, each
+loop's body and both branches run once. A capture or instantiation that
+fails raises; nothing falls back to the eager body.
 
-Graphs do not nest: while a body is warmed up or captured
+Graphs do not nest otherwise: while a body is warmed up or captured
 (:func:`capturing`), a graphed function called inside it runs its eager
 body, which is captured with the rest.
 
-A failed capture raises; nothing falls back to the eager body. The
-counters ``captures``, ``replays`` and ``reads`` (per name; ``reads``
-counts the host reads of :func:`loop`) show whether a stream of
-same-shaped calls recaptures and how often the host waits. The kernel
-launches a graph holds (counted by the wrappers while it was captured,
-when nothing ran) are added to
-:data:`uslam_tpu_torch.cuda_build.launch_counts` at each replay.
+The counters ``captures`` and ``replays`` show whether a stream of
+same-shaped calls recaptures; ``reads`` counts the host reads of the eager
+primitives and of :func:`read`, per name; ``runs`` how often each named
+body ran (a loop's body, or then and else), eagerly or on the device. The
+kernel launches a graph holds (counted by the wrappers while it was
+captured, when nothing ran) are added to
+:data:`uslam_tpu_torch.cuda_build.launch_counts` at each replay; those in
+a conditional body are multiplied by the body's runs, which the condition
+kernel counts on the device, when the host next reads them: in
+:func:`read` (the LM's one read of its statistics) or
+:func:`settle_launches`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import time
 from typing import Callable, NamedTuple
 
 import torch
 
-from uslam_tpu_torch.cuda_build import launch_counts
+from uslam_tpu_torch import cuda_build
+from uslam_tpu_torch.cuda_build import launch_counts, load
 
 captures: dict[str, int] = {}
 replays: dict[str, int] = {}
 reads: dict[str, int] = {}
+runs: dict[str, list] = {}          # name -> [then or loop body runs, else runs]
 capture_ms: dict[str, float] = {}   # host ms of the warm-ups and captures, per name
 _CACHE: dict = {}
 _POOLS: dict = {}
-_DEPTH = [0]   # > 0 while a body is warmed up or captured
+_DEPTH = [0]        # > 0 while a body is warmed up or captured
+_NODES: list = []   # per capture under way: (its conditional nodes, their counts)
+_MAX_NODES = 64     # conditional nodes in one graph
+_BODIES: dict = {}  # (device, depth) -> (stream, memory pool) of conditional bodies
+_NESTING = [0]      # conditional bodies being captured
+_UNSETTLED: dict = {}  # id(entry) -> an entry replayed since its counts were read
+_IF, _WHILE = 0, 1
+
+
+class _CondNode(NamedTuple):
+    name: str
+    handle: int
+    counts: torch.Tensor   # int64 (2,): the handle set to 1, to 0, over every replay
+    launches: list         # per body (then, else; or the loop's): its kernel launches
 
 
 class _Entry(NamedTuple):
@@ -73,12 +104,18 @@ class _Entry(NamedTuple):
     inputs: list
     outputs: object
     launches: dict
+    nodes: tuple
+    settled: list           # per node: its counts as last read
 
 
 def reset_counts() -> None:
+    """Clear the counters, after adding the runs still counted on the
+    device (one host read when a conditional node ran)."""
+    settle_launches()
     captures.clear()
     replays.clear()
     reads.clear()
+    runs.clear()
     capture_ms.clear()
 
 
@@ -97,13 +134,15 @@ def _tracing():
         _DEPTH[0] -= 1
 
 
-def _flatten(tree, leaves: list):
-    """Structure key of ``tree``; its tensors are appended to ``leaves``."""
+def _flatten(tree, leaves: list, layout: bool = False):
+    """Structure key of ``tree``; its tensors are appended to ``leaves``.
+    With ``layout`` the key holds each tensor's strides too."""
     if isinstance(tree, torch.Tensor):
         leaves.append(tree)
-        return ("T", tuple(tree.shape), tree.dtype, tree.device)
+        key = ("T", tuple(tree.shape), tree.dtype, tree.device)
+        return key + (tree.stride(),) if layout else key
     if isinstance(tree, tuple):  # NamedTuples too
-        return ("N", type(tree), tuple(_flatten(t, leaves) for t in tree))
+        return ("N", type(tree), tuple(_flatten(t, leaves, layout) for t in tree))
     return ("C", tree)
 
 
@@ -130,7 +169,7 @@ def _map_tensors(fn, tree):
 def _leaves(name: str, trees) -> tuple:
     """(structure, tensor leaves) of ``trees``, all on one CUDA device."""
     leaves: list = []
-    struct = _flatten(tuple(trees), leaves)
+    struct = _flatten(tuple(trees), leaves, layout=True)
     if not leaves:
         raise ValueError(f"{name}: no tensor to place the graph")
     device = leaves[0].device
@@ -144,7 +183,8 @@ def _leaves(name: str, trees) -> tuple:
 
 def _capture(name: str, body: Callable, inputs: list) -> tuple:
     """Warm up ``body()`` on a side stream, then capture it; returns
-    (graph, its outputs, the kernel launches it holds)."""
+    (graph, its outputs, the kernel launches it holds outside conditional
+    bodies, its conditional nodes)."""
     t0 = time.perf_counter()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -158,30 +198,37 @@ def _capture(name: str, body: Callable, inputs: list) -> tuple:
             pool = _POOLS[device] = torch.cuda.graph_pool_handle()
         before = dict(launch_counts)
         graph = torch.cuda.CUDAGraph()
+        # The nodes' counts accumulate over every replay, so they live
+        # outside the pools: memory a capture hands out is reused by the
+        # graph's earlier nodes, in a loop's next iteration too.
+        _NODES.append(([], torch.zeros((_MAX_NODES, 2), dtype=torch.int64, device=device)))
         try:
             with torch.cuda.graph(graph, pool=pool):
                 outputs = body()
         finally:
+            nodes = tuple(_NODES.pop()[0])
             # A captured launch does not run; the replays count it.
             launches = {k: launch_counts[k] - before.get(k, 0) for k in launch_counts}
             launch_counts.update(before)
     captures[name] = captures.get(name, 0) + 1
     capture_ms[name] = capture_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-    return graph, outputs, launches
+    return graph, outputs, launches, nodes
 
 
 def _replay(name: str, entry: _Entry) -> None:
     entry.graph.replay()
     for k, n in entry.launches.items():
         launch_counts[k] += n
+    if entry.nodes:
+        _UNSETTLED[id(entry)] = entry
     replays[name] = replays.get(name, 0) + 1
 
 
 def call(name: str, fn: Callable, trees: tuple, statics: tuple):
     """``fn(*trees, *statics)`` through the graph cached for ``name``, the
-    structure and shapes of ``trees`` and the values of ``statics``; every
-    tensor of ``trees`` must lie on one CUDA device. Inside another body
-    (:func:`capturing`) ``fn`` runs as it is."""
+    structure, shapes and strides of ``trees`` and the values of
+    ``statics``; every tensor of ``trees`` must lie on one CUDA device.
+    Inside another body (:func:`capturing`) ``fn`` runs as it is."""
     if capturing():
         return fn(*trees, *statics)
     struct, leaves = _leaves(name, trees)
@@ -189,59 +236,241 @@ def call(name: str, fn: Callable, trees: tuple, statics: tuple):
     with torch.cuda.device(leaves[0].device):
         entry = _CACHE.get(key)
         if entry is None:
-            inputs = [leaf.clone() for leaf in leaves]
+            # The leaves' own strides (the key holds them): a matrix product
+            # sums in another order on a transposed operand, so a graph
+            # computes as the eager body does on inputs of this layout.
+            inputs = [torch.empty_strided(leaf.shape, leaf.stride(), dtype=leaf.dtype,
+                                          device=leaf.device).copy_(leaf) for leaf in leaves]
             args = _unflatten(struct, iter(inputs))
-            graph, outputs, launches = _capture(name, lambda: fn(*args, *statics), inputs)
-            entry = _CACHE[key] = _Entry(graph, inputs, outputs, launches)
+            graph, outputs, launches, nodes = _capture(
+                name, lambda: fn(*args, *statics), inputs)
+            entry = _CACHE[key] = _Entry(graph, inputs, outputs, launches, nodes,
+                                         [[0, 0] for _ in nodes])
         for dst, src in zip(entry.inputs, leaves):
             dst.copy_(src)
         _replay(name, entry)
         return _map_tensors(torch.clone, entry.outputs)
 
 
-def loop(name: str, step: Callable, consts: tuple, carry, statics: tuple, max_steps: int,
-         per_read: int):
-    """Replay the graph of ``step`` until it reports "stopped", at most
-    ``max_steps`` times; returns the final carry (clones).
+# ---- reading the device's counts -------------------------------------------
 
-    ``step(*consts, carry, *statics)`` returns (the carry after one step, a
-    0-d bool "stopped") and must leave a stopped carry as it is. The graph,
-    cached as :func:`call` caches it (``consts`` and ``carry`` both key
-    it), copies the new carry into its static inputs, so the replays chain
-    with no copy in between. The host reads "stopped" after every
-    ``per_read`` replays but after the last: at most ``ceil(max_steps /
-    per_read) - 1`` reads, none when one block of replays is enough."""
-    c_struct, c_leaves = _leaves(name, consts)
-    s_struct, s_leaves = _leaves(name, (carry,))
-    key = ("loop", name, c_struct, s_struct, tuple(statics))
-    with torch.cuda.device(s_leaves[0].device):
-        entry = _CACHE.get(key)
-        if entry is None:
-            c_in = [leaf.clone() for leaf in c_leaves]
-            s_in = [leaf.clone() for leaf in s_leaves]
-            args = _unflatten(c_struct, iter(c_in))
-            state = _unflatten(s_struct, iter(s_in))[0]
+def count_runs(name: str, then: int, other: int = 0) -> None:
+    """Add to ``runs[name]``: a loop body's (or a then-branch's) runs and an
+    else-branch's."""
+    if not (then or other):
+        return
+    r = runs.setdefault(name, [0, 0])
+    r[0] += then
+    r[1] += other
 
-            def body():
-                new, stopped = step(*args, state, *statics)
-                new_leaves: list = []
-                if _flatten((new,), new_leaves) != s_struct:
-                    raise ValueError(f"{name}: the step changed its carry's structure")
-                for dst, src in zip(s_in, new_leaves):
-                    dst.copy_(src)
-                return stopped
 
-            graph, stopped, launches = _capture(name, body, s_in)
-            entry = _CACHE[key] = _Entry(graph, (c_in, s_in), stopped, launches)
-        c_in, s_in = entry.inputs
-        for dst, src in zip(c_in + s_in, c_leaves + s_leaves):
-            dst.copy_(src)
-        for done in range(1, max_steps + 1):
-            _replay(name, entry)
-            if done == max_steps:
-                break
-            if done % per_read == 0:
-                reads[name] = reads.get(name, 0) + 1
-                if bool(entry.outputs):
-                    break
-        return _unflatten(s_struct, iter([x.clone() for x in s_in]))[0]
+def _settle(device: torch.device, values: tuple = ()) -> list:
+    """One host read of ``values`` (0-d tensors on ``device``) and of the
+    counts of the conditional nodes replayed on ``device`` since their last
+    read; adds the launches their bodies held times their runs to
+    ``launch_counts``. Returns ``values`` as Python floats."""
+    entries = [e for e in _UNSETTLED.values() if e.inputs[0].device == device]
+    counts = [node.counts for e in entries for node in e.nodes]
+    parts = [torch.stack([v.double() for v in values]).reshape(-1)] if values else []
+    parts += [c.double() for c in counts]
+    if not parts:
+        return []
+    flat = torch.cat(parts).tolist()
+    out, flat = flat[:len(values)], iter(flat[len(values):])
+    for e in entries:
+        for node, seen in zip(e.nodes, e.settled):
+            now = [int(next(flat)), int(next(flat))]
+            ran = [now[0] - seen[0], now[1] - seen[1]]
+            seen[:] = now
+            for body, n in zip(node.launches, ran):
+                for k, per in body.items():
+                    launch_counts[k] += per * n
+            # A WHILE node's second count is its exits, not a body's runs.
+            count_runs(node.name, ran[0], ran[1] if len(node.launches) == 2 else 0)
+        del _UNSETTLED[id(e)]
+    return out
+
+
+def read(values, name: str = "read") -> list:
+    """The one host read: ``values`` (0-d tensors on one device) as Python
+    floats, with the device's counts of the conditional nodes replayed
+    since their last read (:func:`settle_launches`) in the same copy."""
+    values = tuple(values)
+    reads[name] = reads.get(name, 0) + 1
+    if values[0].device.type != "cuda":
+        return torch.stack([v.double() for v in values]).tolist()
+    return _settle(values[0].device, values)
+
+
+def settle_launches() -> None:
+    """Read the counts of every conditional node replayed since their last
+    read (one host read per device) and add the launches their bodies ran
+    to ``launch_counts`` and their runs to ``runs``."""
+    for device in {e.inputs[0].device for e in _UNSETTLED.values()}:
+        _settle(device)
+
+
+cuda_build.before_reset.append(settle_launches)
+
+
+# ---- conditional nodes -------------------------------------------------------
+
+def _check(lib, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.uslam_cuda_error_string(code).decode()
+        raise RuntimeError(f"CUDA graph conditional node: {what} failed: {msg} ({code})")
+
+
+def _flag(flag, what: str) -> torch.Tensor:
+    if not (isinstance(flag, torch.Tensor) and flag.dtype == torch.bool and flag.numel() == 1
+            and flag.device.type == "cuda"):
+        raise ValueError(f"{what} needs a one-element bool tensor on a CUDA device in a graph, "
+                         f"got {flag!r}")
+    return flag
+
+
+def _read_flag(flag, name: str) -> bool:
+    reads[name] = reads.get(name, 0) + 1
+    return bool(flag)
+
+
+def _body_stream(device: torch.device, depth: int) -> tuple:
+    """(stream, memory pool) of the conditional bodies at ``depth``."""
+    key = (device, depth)
+    if key not in _BODIES:
+        lib = load()
+        ptr = ctypes.c_void_p()
+        _check(lib, lib.uslam_stream_create(ctypes.byref(ptr)), "stream creation")
+        _BODIES[key] = (torch.cuda.ExternalStream(ptr.value, device=device),
+                        torch.cuda.graph_pool_handle())
+    return _BODIES[key]
+
+
+def _node(kind: int, flag: torch.Tensor, name: str) -> tuple:
+    """Add a conditional node after the kernel that sets its handle from
+    ``flag``, on the stream under capture; returns (the node, its body
+    graphs)."""
+    lib = load()
+    stream = torch.cuda.current_stream(flag.device)
+    nodes, all_counts = _NODES[-1]
+    if len(nodes) == _MAX_NODES:
+        raise ValueError(f"{name}: more than {_MAX_NODES} conditional nodes in one graph")
+    counts = all_counts[len(nodes)]
+    handle = ctypes.c_ulonglong()
+    bodies = (ctypes.c_void_p * 2)()
+    _check(lib, lib.uslam_cond_node(stream.cuda_stream, kind, flag.data_ptr(), counts.data_ptr(),
+                                    ctypes.byref(handle), bodies), f"{name}: adding the node")
+    launch_counts["graph_cond"] += 1
+    node = _CondNode(name, handle.value, counts, [])
+    nodes.append(node)
+    return node, list(bodies)[: 2 if kind == _IF else 1]
+
+
+@contextlib.contextmanager
+def _body(node: _CondNode, graph: int, device: torch.device):
+    """Capture what runs inside into the body ``graph`` of ``node``, from
+    this depth's stream, allocating from this depth's pool; the kernel
+    launches it holds go to ``node.launches``."""
+    stream, pool = _body_stream(device, _NESTING[0])
+    lib = load()
+    _check(lib, lib.uslam_capture_to(stream.cuda_stream, graph), f"{node.name}: body capture")
+    before = dict(launch_counts)
+    _NESTING[0] += 1
+    try:
+        with torch.cuda.stream(stream):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(device.index, pool)
+            try:
+                yield
+            finally:
+                torch._C._cuda_endAllocateToPool(device.index, pool)
+    finally:
+        _NESTING[0] -= 1
+        node.launches.append({k: launch_counts[k] - before[k] for k in launch_counts})
+        launch_counts.update(before)
+        code = lib.uslam_capture_end(stream.cuda_stream)
+    _check(lib, code, f"{node.name}: body capture")
+
+
+def _set(node: _CondNode, flag: torch.Tensor) -> None:
+    """The condition kernel on the stream under capture: ``node``'s handle
+    from ``flag`` (a WHILE body's last node)."""
+    lib = load()
+    stream = torch.cuda.current_stream(flag.device)
+    _check(lib, lib.uslam_cond_set(stream.cuda_stream, node.handle, flag.data_ptr(),
+                                   node.counts.data_ptr()), f"{node.name}: the condition kernel")
+    launch_counts["graph_cond"] += 1
+
+
+def _assign(dsts: list, srcs: list) -> None:
+    """Copy ``srcs`` into ``dsts`` leaf by leaf; a source that shares memory
+    with a destination is cloned first, so no copy reads what another
+    wrote."""
+    held = {d.untyped_storage().data_ptr() for d in dsts}
+    srcs = [s.clone() if s is not d and s.untyped_storage().data_ptr() in held else s
+            for s, d in zip(srcs, dsts)]
+    for d, s in zip(dsts, srcs):
+        if s is not d:
+            d.copy_(s)
+
+
+def _warming_up() -> bool:
+    """Inside :func:`capturing`: a body's warm-up, not its capture."""
+    return not torch.cuda.is_current_stream_capturing()
+
+
+def while_loop(cond_fun: Callable, body_fun: Callable, init, *, name: str = "while_loop"):
+    """``jax.lax.while_loop``: ``body_fun`` applied to the carry while
+    ``cond_fun`` of it is true (a one-element bool tensor); ``body_fun``
+    keeps the carry's structure, shapes and dtypes. Eagerly one host read
+    per test; in a capture a WHILE node (no host read)."""
+    if not capturing():
+        val = init
+        while _read_flag(cond_fun(val), name):
+            val = body_fun(val)
+            count_runs(name, 1)
+        return val
+    if _warming_up():
+        return body_fun(init)
+    leaves: list = []
+    struct = _flatten(init, leaves)
+    carry_leaves = [leaf.clone() for leaf in leaves]
+    carry = _unflatten(struct, iter(carry_leaves))
+    flag = _flag(cond_fun(carry), f"while_loop {name!r}")
+    node, (graph,) = _node(_WHILE, flag, name)
+    with _body(node, graph, flag.device):
+        new_leaves: list = []
+        if _flatten(body_fun(carry), new_leaves) != struct:
+            raise ValueError(f"while_loop {name!r}: the body changed its carry's structure")
+        _assign(carry_leaves, new_leaves)
+        _set(node, _flag(cond_fun(carry), f"while_loop {name!r}"))
+    return carry
+
+
+def cond(pred, true_fun: Callable, false_fun: Callable, *operands, name: str = "cond"):
+    """``jax.lax.cond``: ``true_fun(*operands)`` if ``pred`` (a one-element
+    bool tensor) else ``false_fun(*operands)``; both give the same
+    structure, shapes and dtypes. Eagerly one host read; in a capture an
+    IF node with an else body (no host read)."""
+    if not capturing():
+        if _read_flag(pred, name):
+            count_runs(name, 1)
+            return true_fun(*operands)
+        count_runs(name, 0, 1)
+        return false_fun(*operands)
+    if _warming_up():
+        out = true_fun(*operands)
+        if _flatten(false_fun(*operands), []) != _flatten(out, []):
+            raise ValueError(f"cond {name!r}: the branches differ in structure")
+        return out
+    pred = _flag(pred, f"cond {name!r}")
+    node, (then_graph, else_graph) = _node(_IF, pred, name)
+    leaves: list = []
+    with _body(node, then_graph, pred.device):
+        struct = _flatten(true_fun(*operands), leaves)
+        out = [leaf.clone() for leaf in leaves]   # written by either body
+    other: list = []
+    with _body(node, else_graph, pred.device):
+        if _flatten(false_fun(*operands), other) != struct:
+            raise ValueError(f"cond {name!r}: the branches differ in structure")
+        _assign(out, other)
+    return _unflatten(struct, iter(out))

@@ -15,11 +15,11 @@ prior (port of :mod:`uslam_tpu.solvers.fixed_lag`).
   kernel), rolls the state and packs the output, LM statistics included,
   which comes back in one device-to-host copy. On the card these are
   three CUDA graphs keyed by the window's shapes, replayed with no host
-  read when ``max_iterations <= LM_BLOCK`` (the JAX package's
-  ``_device_window_step`` is one program; graphs do not nest an LM): the
-  graph build (``"window_graph"``), the LM step (``"lm_step"``) and the
-  rest (``"window_tail"``). The smoother captures them at its first
-  marginalization, before the first steady keyframe.
+  read (the JAX package's ``_device_window_step`` is one program): the
+  graph build (``"window_graph"``), the LM (``"lm_solve"``: its loop a
+  WHILE node that stops when the window converges, its re-linearization
+  an IF node) and the rest (``"window_tail"``). The smoother captures
+  them at its first marginalization, before the first steady keyframe.
 - Fused (:func:`fused_keyframe_step`): the per-frame front end, id
   interning, triangulation and record assembly run on the device too, in
   one more graph with the graph build (``"fused_front"``), so the host
@@ -314,7 +314,9 @@ def window_tail(st: DeviceWindowState, rec: DeviceWindowRecord, graph, values: V
     window's type as in the JAX package)."""
     lam = marginal_information(graph, values, cam, dvl_sigma, stereo_sigma, gravity)
     w, V, _ = sym_eigh(0.5 * (lam + lam.T))
-    sqrt_info = (V * torch.sqrt(torch.clamp(w, min=0.0))).T
+    # Contiguous, as the host's first marginal is: the next window graph
+    # then has the layout its cached graphs were captured with.
+    sqrt_info = (V * torch.sqrt(torch.clamp(w, min=0.0))).T.contiguous()
 
     def roll(a, b):
         return torch.cat([a[1:], b[None]])
@@ -376,9 +378,9 @@ def window_step(st: DeviceWindowState, rec: DeviceWindowRecord, cam, dvl_sigma, 
 
     ``graphed`` (default: on CUDA without ``debug_nans``): the graph build
     replays as one CUDA graph (``"window_graph"``) keyed by the window's
-    shapes, the LM as its step's graph
-    (:func:`uslam_tpu_torch.solvers.lm.solve_lm`), with no host read when
-    ``max_iterations <= LM_BLOCK``, and the rest as ``"window_tail"``
+    shapes, the LM as its solve's graph
+    (:func:`uslam_tpu_torch.solvers.lm.solve_lm`: a WHILE node, no host
+    read), and the rest as ``"window_tail"``
     (:func:`window_tail`, the marginal's linearization inside it): no host
     read and no launch outside a graph but their copies in and out.
     ``graphed=False`` runs the same bodies eagerly (the linearizations
@@ -648,7 +650,9 @@ class FixedLagSmoother:
         keep it as the next window's dense prior on frame 1."""
         w, V = np.linalg.eigh((lam + lam.T) / 2.0)   # sparsification: tiny negative eigs
         self._marg = {
-            "sqrt_info": (V * np.sqrt(np.clip(w, 0.0, None))).T,  # sqrt_info^T sqrt_info = lam
+            # sqrt_info^T sqrt_info = lam; C order, the layout of the first
+            # window's (zero) prior, whose graphs the next windows replay.
+            "sqrt_info": np.ascontiguousarray((V * np.sqrt(np.clip(w, 0.0, None))).T),
             "pose_quat": values.pose_quat[1].cpu().numpy(),
             "pose_trans": values.pose_trans[1].cpu().numpy(),
             "vel": values.vel[1].cpu().numpy(),
@@ -714,7 +718,7 @@ class FixedLagSmoother:
 
     def _prime_device_step(self) -> None:
         """Capture the steady keyframe's CUDA graphs (``"window_graph"``, the
-        window's ``"lm_step"``, ``"window_tail"``) at the first
+        window's ``"lm_solve"``, ``"window_tail"``) at the first
         marginalization, so that no steady keyframe pays for them: the device
         window is made from the frames just kept (as the first steady step
         would make it), and one step runs on the newest frame's record, its

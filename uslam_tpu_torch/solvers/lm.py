@@ -14,27 +14,22 @@ divided with its floor or multiplied, the convergence tests, the lambda
 blow-up and the plateau band. Every comparison runs in the solve's float
 type, as the JAX loop's device-side ones do. An ``active`` flag
 (``iterations < max_iterations`` and not converged) gates every update,
-so a step after the stop leaves the state exactly as it was: steps run in
-blocks, and the host reads "stopped" once per block.
+so a step after the stop leaves the state exactly as it was, and eager
+blocks of any size give the same bits.
 
-Where ``lax.cond`` skips the re-linearization of a rejected step,
-:func:`lm_step` (the step a CUDA graph holds) linearizes at the kept
-values anyway and selects the old linearization (the same values; a
-reject, and a step after the stop, costs one linearization of device
-time); run eagerly, the step takes the branch on the host as the JAX
-package's does, in one read of the accept flag (and, at the end of a
-block, of "stopped" with it).
-
-On the card (no ``debug_nans``, no ``group``) :func:`lm_step` is captured
-once as a CUDA graph (:func:`uslam_tpu_torch.solvers.compiled.loop`),
-keyed by the graph's shapes and the solver settings the step reads, and
-replayed with the state in its static buffers, ``LM_BLOCK`` times
-between reads of "stopped" and at most ``max_iterations`` times: at most
-``ceil(iterations / LM_BLOCK)`` reads per solve, and none when
-``max_iterations <= LM_BLOCK`` (the online window step). On the CPU, with
-``debug_nans`` and with ``group`` the same step runs eagerly, one step per
-block unless ``block`` says otherwise; blocks of any size give the same
-bits.
+The loop and the branch are the JAX package's own, through
+:func:`uslam_tpu_torch.solvers.compiled.while_loop` and
+:func:`uslam_tpu_torch.solvers.compiled.cond`: :func:`lm_step`
+re-linearizes under ``cond`` when the step was taken, so a solve
+linearizes 1 + (accepted steps) times. On the card (no ``debug_nans``, no
+``group``) the whole solve is one CUDA graph (``"lm_solve"``), keyed by the
+graph's shapes and the solver settings the step reads: the first
+linearization and error, then a WHILE node whose body is one step (its
+re-linearization an IF node, its CG another WHILE node). A solve launches
+one graph and runs no step after the stop; :func:`optimize_lm` reads the
+host once, for the statistics. On the CPU, with ``debug_nans`` and with
+``group`` the same steps run eagerly in blocks of ``block`` (default 1):
+one host read of "active" per block and one of the accept flag per step.
 
 The default linear solver is the landmark Schur complement with velocity
 elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
@@ -75,11 +70,6 @@ from uslam_tpu_torch.solvers.banded import solve_schur_banded
 from uslam_tpu_torch.solvers.dense import assemble_dense_with_landmarks, solve_dense_gn
 from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
 from uslam_tpu_torch.solvers.schur import solve_schur
-
-# LM steps per CUDA-graph replay: at least the online window's 4 (one replay
-# and no read per keyframe). A step after the stop still costs a whole
-# iteration of device time (PERF.md).
-LM_BLOCK = 4
 
 
 def check_finite(stage: str, *tensors: torch.Tensor, group=None) -> None:
@@ -250,41 +240,57 @@ def _decide(state: LMState, p: _Problem, cfg: SolverConfig, check=None):
     ), take
 
 
-def lm_step(state: LMState, p: _Problem, cfg: SolverConfig) -> LMState:
-    """One LM step with no host read (the step a CUDA graph holds): a graph
-    cannot branch on device values, so it linearizes at the kept values
-    anyway and selects (the same values as ``lax.cond``'s). After the stop
-    it returns the state's values unchanged."""
-    new, take = _decide(state, p, cfg)
-    return new._replace(lin=_select(take, p.linearize(new.values), state.lin))
-
-
-def _eager_step(state: LMState, p: _Problem, cfg: SolverConfig, check, read_stopped: bool):
-    """One LM step run eagerly: ``lax.cond``'s branch on the host, so only
-    a taken step linearizes. One host read: the accept flag, and with
-    ``read_stopped`` "stopped" after the step beside it. Returns (the
-    state, "stopped" or None)."""
+def lm_step(state: LMState, p: _Problem, cfg: SolverConfig, check=None) -> LMState:
+    """One iteration of the JAX package's ``step``, gated by ``active``:
+    the step, its accept test and, under ``lax.cond``
+    (:func:`uslam_tpu_torch.solvers.compiled.cond`), the re-linearization
+    of a taken step alone. Eagerly the branch is taken on the host (one
+    read); in a CUDA graph it is an IF node. After the stop it returns the
+    state unchanged."""
     new, take = _decide(state, p, cfg, check)
-    if read_stopped:
-        taken, stopped = torch.stack([take, _stopped(new, cfg)]).tolist()
-    else:
-        taken, stopped = bool(take), None
-    if taken:
-        new = new._replace(lin=p.linearize(new.values))
-    return new, stopped
+    lin = compiled.cond(take, p.linearize, lambda values: state.lin, new.values,
+                        name="lm_linearize")
+    return new._replace(lin=lin)
 
 
-def _stopped(state: LMState, cfg: SolverConfig) -> torch.Tensor:
-    return (state.iterations >= cfg.max_iterations) | state.converged
+def _active(state: LMState, cfg: SolverConfig) -> torch.Tensor:
+    return (state.iterations < cfg.max_iterations) & ~state.converged
 
 
-def _graph_step(graph, cam, state, dvl_sigma, stereo_sigma, gravity, huber_delta, cfg):
-    """One LM step and the "stopped" flag: the body of the graphed step
-    (:func:`uslam_tpu_torch.solvers.compiled.loop`)."""
+def _run(p: _Problem, initial: Values, cfg: SolverConfig, block: int, check) -> tuple:
+    """The JAX package's ``optimize_lm`` body: the first linearization and
+    error, then ``lax.while_loop`` over blocks of ``block`` steps
+    (:func:`uslam_tpu_torch.solvers.compiled.while_loop`); (values, the
+    statistics as 0-d tensors)."""
+    # On the card lin holds clones of a replayed graph's outputs, so it
+    # outlives the error's replays (another graph) and later linearizations.
+    lin = p.linearize(initial)
+    init_error = p.error(initial)
+    dev = init_error.device
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    state = LMState(
+        initial, lin, init_error,
+        torch.full((), cfg.lambda_initial, dtype=init_error.dtype, device=dev),
+        count, count, torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+    def steps(s: LMState) -> LMState:
+        for _ in range(block):
+            s = lm_step(s, p, cfg, check)
+        return s
+
+    state = compiled.while_loop(functools.partial(_active, cfg=cfg), steps, state,
+                                name="lm_step")
+    stats = LMStats(init_error, state.error, state.iterations, state.lam, state.converged)
+    return state.values, stats
+
+
+def _graph_solve(graph, cam, initial, dvl_sigma, stereo_sigma, gravity, huber_delta, cfg):
+    """The whole solve, the body of its CUDA graph: a WHILE node over
+    :func:`lm_step`."""
     p = _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, None,
-                 state.values.num_poses, state.values.num_landmarks, None)
-    state = lm_step(state, p, cfg)
-    return state, _stopped(state, cfg)
+                 initial.num_poses, initial.num_landmarks, None)
+    return _run(p, initial, cfg, 1, None)
 
 
 def solve_lm(
@@ -307,10 +313,9 @@ def solve_lm(
     this rank's slice, everything else is the same on every rank.
 
     ``graphed`` (default: on CUDA without ``debug_nans`` and ``group``)
-    replays one step's CUDA graph, reading "stopped" after every ``block``
-    replays (default ``LM_BLOCK``); ``graphed=False`` runs the same steps
-    eagerly in blocks of ``block`` (default 1). A capture that fails
-    raises."""
+    replays the solve's CUDA graph (the loop a WHILE node: no host read);
+    ``graphed=False`` runs the same steps eagerly in blocks of ``block``
+    (default 1). A capture that fails raises."""
     if group is not None and cfg.linear_solver != "schur":
         raise ValueError("sharded LM requires the schur linear solver")
     if cfg.reduced_solver == "banded" and cfg.band_width <= 0:
@@ -324,42 +329,21 @@ def solve_lm(
         graphed = eligible
     if graphed and not eligible:
         raise ValueError("graphed LM needs CUDA tensors, no group and debug_nans off")
-    k = block or (LM_BLOCK if graphed else 1)
+    if graphed and block is not None:
+        raise ValueError("block applies to the eager LM (graphed=False) alone")
+    k = block or 1
     if k < 1:
         raise ValueError(f"block {k} < 1")
+    sig = (dvl_sigma, stereo_sigma, gravity)
+    if graphed:
+        return compiled.call("lm_solve", _graph_solve, (graph, cam, initial),
+                             (*sig, huber_delta, graph_config(cfg)))
     check = None
     if cfg.debug_nans:
         check = check_finite if group is None else functools.partial(check_finite, group=group)
-    n, m = initial.num_poses, initial.num_landmarks
-    sig = (dvl_sigma, stereo_sigma, gravity)
-    p = _problem(graph, cam, *sig, cfg, huber_delta, group, n, m, check)
-
-    # On the card lin holds clones of a replayed graph's outputs, so it
-    # outlives the error's replays (another graph) and later linearizations.
-    lin = p.linearize(initial)
-    init_error = p.error(initial)
-    dev = init_error.device
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    state = LMState(
-        initial, lin, init_error,
-        torch.full((), cfg.lambda_initial, dtype=init_error.dtype, device=dev),
-        count, count, torch.zeros((), dtype=torch.bool, device=dev),
-    )
-    if graphed:
-        # At most max_iterations replays: the state is stopped after them.
-        state = compiled.loop("lm_step", _graph_step, (graph, cam), state,
-                              (*sig, huber_delta, graph_config(cfg)), cfg.max_iterations, k)
-    else:
-        n_blocks = -(-cfg.max_iterations // k)
-        for b in range(n_blocks):
-            last = b == n_blocks - 1
-            for i in range(k):
-                state, stopped = _eager_step(state, p, cfg, check,
-                                             read_stopped=i == k - 1 and not last)
-            if stopped:
-                break
-    stats = LMStats(init_error, state.error, state.iterations, state.lam, state.converged)
-    return state.values, stats
+    p = _problem(graph, cam, *sig, cfg, huber_delta, group, initial.num_poses,
+                 initial.num_landmarks, check)
+    return _run(p, initial, cfg, k, check)
 
 
 def optimize_lm(
@@ -382,7 +366,7 @@ def optimize_lm(
         graph, initial, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, group,
         block=block, graphed=graphed,
     )
-    e0, e, it, lam, conv = torch.stack([s.double() for s in stats]).tolist()
+    e0, e, it, lam, conv = compiled.read(stats)
     return values, LMStats(
         initial_error=e0, final_error=e, iterations=int(it), final_lambda=lam,
         converged=bool(conv),

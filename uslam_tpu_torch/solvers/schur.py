@@ -279,39 +279,49 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
     D^-1/2 b, x = D^-1/2 y, with the JAX package's stopping rule: iterate
     while it < iters and rr > tol^2 ||b||^2.
 
-    Iterations run in blocks of ``CG_BLOCK``: inside a block an iteration
-    whose stopping test holds leaves the state as it is (``torch.where``),
-    and the host reads the test once per block, so the result is the JAX
-    loop's with one sync per block instead of one per iteration. Inside a
-    CUDA graph's capture (the LM's block) nothing may read the host: all
-    ``ceil(iters / CG_BLOCK)`` blocks run, the frozen ones leaving the state
-    as it is, which is the JAX package's ``while_loop`` exactly."""
+    Inside a CUDA graph's capture (the LM's) the loop is the JAX package's
+    ``lax.while_loop``, a WHILE node
+    (:func:`uslam_tpu_torch.solvers.compiled.while_loop`) whose body is one
+    iteration. Eagerly, iterations run in blocks of ``CG_BLOCK``: inside a
+    block an iteration whose stopping test holds leaves the state as it is
+    (``torch.where``), and the host reads the test once per block, so the
+    result is the JAX loop's, bit for bit the same as the graph's, with one
+    sync per block instead of one per iteration. Either way the iterations
+    run are counted in ``compiled.runs["cg"]``."""
     d_inv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(A), min=1e-20))
     As = A * d_inv[:, None] * d_inv[None, :]
     bs = b * d_inv
     rr = bs @ bs
     thresh = tol * tol * torch.clamp(rr, min=1e-30)
-    x, r, p = torch.zeros_like(bs), bs, bs
-    it = torch.zeros((), dtype=torch.int64, device=b.device)
     tiny = torch.full((), 1e-30, dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    in_graph = compiled.capturing()
+
+    def going(state):
+        _, _, _, rr, it = state
+        return (it < iters) & (rr > thresh)
+
+    def iteration(state):
+        x, r, p, rr, it = state
+        Ap = As @ p
+        pAp = p @ Ap
+        alpha = torch.where(pAp > 1e-30, rr / torch.maximum(pAp, tiny), zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rr_new = r @ r
+        beta = torch.where(rr > 1e-30, rr_new / torch.maximum(rr, tiny), zero)
+        return x, r, r + beta * p, rr_new, it + 1
+
+    state = (torch.zeros_like(bs), bs, bs, rr, torch.zeros((), dtype=torch.int64, device=b.device))
+    if compiled.capturing():
+        return compiled.while_loop(going, iteration, state, name="cg")[0] * d_inv
+    done = 0
     for _ in range(-(-iters // CG_BLOCK)):
         for _ in range(CG_BLOCK):
-            active = (it < iters) & (rr > thresh)
-            Ap = As @ p
-            pAp = p @ Ap
-            alpha = torch.where(pAp > 1e-30, rr / torch.maximum(pAp, tiny), zero)
-            x_new = x + alpha * p
-            r_new = r - alpha * Ap
-            rr_new = r_new @ r_new
-            beta = torch.where(rr > 1e-30, rr_new / torch.maximum(rr, tiny), zero)
-            p_new = r_new + beta * p
-            x = torch.where(active, x_new, x)
-            r = torch.where(active, r_new, r)
-            p = torch.where(active, p_new, p)
-            rr = torch.where(active, rr_new, rr)
-            it = it + active.long()
-        if not in_graph and not bool((it < iters) & (rr > thresh)):
+            active = going(state)
+            state = tuple(torch.where(active, new, old)
+                          for new, old in zip(iteration(state), state))
+        go, done = torch.stack([going(state).long(), state[4]]).tolist()
+        if not go:
             break
-    return x * d_inv
+    compiled.count_runs("cg", done)
+    return state[0] * d_inv
