@@ -17,7 +17,14 @@ Phases, each of which raises (exit code != 0) on failure:
    eager run bit for bit at 5 steps and at 0, with its body runs and
    launches; the condition kernel against its plain version (a host read
    of the flag), its time per launch in a graph beside its bound, a WHILE
-   iteration's time and the host read's.
+   iteration's time and the host read's. Then the collective probe
+   (``nccl_probe``) on an NCCL group of one rank on cuda:0: the port's three
+   collectives (an in-place sum, a gather of float and bool rows, the first
+   rank's value) in a plain graph, a WHILE body, both bodies of an IF, before
+   a loop and in its body, and in an IF nested in a WHILE body, each graphed
+   against its eager run bit for bit at 5 steps and 0, with the node types
+   of each graph and body (one rank: torch's side and NCCL's one-rank
+   copies; NCCL's kernels for more ranks only in phase 12 (b)).
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (FAST+Harris on 16 images at each of
    the three pyramid levels of 1920x1080, bit-identical on the interior,
@@ -154,17 +161,39 @@ Phases, each of which raises (exit code != 0) on failure:
 12. multi-device (``uslam_tpu_torch.parallel`` over ``torch.distributed``):
    (a) an NCCL group of one rank on cuda:0 in this process, where every
    collective runs and is an identity: ``sharded_optimize_lm`` on phase 7's
-   1k problem must end bit-identical to phase 7's solve (iterations, final
-   error, values), ``sharded_lm_step`` with the banded solver on phase 9's
-   2000-pose survey bit-identical to the single-device step, and
-   ``process_stereo_pairs_sharded`` / ``extract_orb_frames_sharded`` on
-   phase 3's first chunk (uint8) equal to ``orb_chunk_step``'s stereo
-   output, with 3 fast_harris + 1 hamming and 3 fast_harris launches per
-   call; prints the collectives' bytes per LM iteration and their device
-   time in one sharded solve. (b) With two or more GPUs, one NCCL rank per
-   GPU (``parallel.launch.run_ranks``): the float64 1k LM held to one
-   rank's over ``PARALLEL_LM_ITERS`` iterations and the front end to (a)
-   exactly; on one GPU it prints that it did not run.
+   1k problem and on phase 9's 2000-pose survey (banded) graphed (two plain
+   graphs, ``"lm_start"`` and blocks of ``SHARDED_BLOCK`` steps,
+   ``"lm_block"``, the collectives inside; host reads ceil(iterations / 4)
+   + 1, each a block's read of "active", the only host syncs of a replay)
+   against eager blocks of one step, bit for bit, as ``lm_graph_pair`` does
+   for phase 14, and bit-identical to phase 7's solve and to the
+   single-device graphed survey solve; host ms per iteration graphed, eager
+   (before the capture and after) and the single-device graphed solve's;
+   ``sharded_lm_step`` (one graph per call; Cholesky on the 1k, banded on
+   the survey) graphed against eager and the single-device step, bit for
+   bit; ``collectives.wait``, the host's wait after each block, reads the
+   group's timeout, returns at once on an idle stream and, on a stream kept
+   busy past a short-timeout group's limit, raises then;
+   after ``close_mesh`` no cached graph holds the group; ``process_stereo_pairs_sharded`` /
+   ``extract_orb_frames_sharded`` on phase 3's first chunk (uint8) equal to
+   ``orb_chunk_step``'s stereo output, with 3 fast_harris + 1 hamming and 3
+   fast_harris launches per call; prints the collectives' bytes per LM
+   iteration and their device time in one sharded solve. (b) With two or
+   more GPUs, one NCCL rank per GPU (``parallel.launch.run_ranks``): the
+   collective probe on every rank (a plain graph must equal eager; the
+   conditional bodies' outcome and node types are printed: NCCL's event
+   nodes keep them from instantiating), then the float64 1k LM graphed on
+   every rank, held to one rank's over ``PARALLEL_LM_ITERS`` iterations,
+   every rank the same bits and equal to its eager blocks of 1, with its
+   reads, graph launches, capture ms and ms per iteration graphed and
+   eager; the same over ``PARALLEL_BLOCKS_ITERS`` iterations, two blocks or
+   more with a host read between them, every rank the same bits, the same
+   reads (ceil(iterations / 4) + 1) and equal to its eager blocks of 1; a
+   stuck peer: rank 0 replays a graph holding an all-reduce its peers
+   never join, and its ``collectives.wait`` raises after
+   ``STUCK_TIMEOUT_S``, the replay still running; the
+   front end to (a) exactly; on one GPU it prints that it
+   did not run.
    ``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 12 alone
    (the 1k solve, the 2000-pose survey at its initial values and a 2 s
    dive's first chunk made for it).
@@ -194,7 +223,8 @@ Phases, each of which raises (exit code != 0) on failure:
    with per solve its host reads (1), graph launches (1), steps run (no
    masked step), linearizations (1 + the accepted steps, as eager), CG
    iterations (as eager) and the launches of preintegrate and graph_cond
-   against the counts the code gives; captures, the capture's host ms, host
+   against the counts the code gives; no host sync in a replay of
+   ``solve_lm`` (``set_sync_debug_mode``); captures, the capture's host ms, host
    ms per iteration and the device's busy share of one graphed solve; and
    the online window step of phase 8's pass (c), graphed against eager, bit
    for bit, with no capture, no host read and no masked step (its three
@@ -357,6 +387,20 @@ IMAGE_TOPICS = ("/zedm/zed_node/left/image_rect_color", "/zedm/zed_node/right/im
 PARALLEL_LM_ITERS = 3
 PARALLEL_ERROR_RTOL = 1e-7
 PARALLEL_VALUES_ATOL = 1e-7
+# Phase 12 (b): the ranks' float64 1k LM over more than one block of steps
+# (solvers/lm.py's SHARDED_BLOCK = 4), held rank against rank bit for bit.
+PARALLEL_BLOCKS_ITERS = 9
+# Phase 12 (b)'s ranks are stopped after this long, should a rank hang
+# where no timeout of the group reaches.
+PARALLEL_TIMEOUT_S = 240
+# Phase 12 (a): collectives.wait on a stream kept busy (torch.cuda._sleep,
+# ~1.5-2 s at the H100's clocks) past the timeout of a group of one rank.
+WAIT_PROBE_TIMEOUT_S = 0.25
+WAIT_PROBE_CYCLES = 3_000_000_000
+# Phase 12 (b): the timeout of the group whose all-reduce one rank replays
+# in a graph and its peers never join.
+STUCK_TIMEOUT_S = 3.0
+STUCK_RANKS_S = 60      # the ranks are killed after this long
 # Phase 13: the public surface's entry points on the card. extract_orb on
 # the card against the CPU: masks, positions and levels exact, Harris
 # scores and angles to tests/test_torch_frontend.py's 1e-5 relative and
@@ -972,8 +1016,129 @@ def graph_cond_probe() -> dict:
         f"plain version (a host read of the flag) {plain_ms!r} ms; bound {bound!r} ms "
         f"({bound_by}: the flag's byte, one count read and written); max abs err {err}")
     checks["conditional nodes: the condition kernel = the host's read of the flag"] = err == 0
+    from uslam_tpu_torch.parallel import make_mesh
+    from uslam_tpu_torch.parallel.mesh import close_mesh
+
+    mesh = make_mesh(0, 1, "cuda:0")
+    try:
+        found = nccl_probe(mesh)["ok"]
+    finally:
+        close_mesh(mesh)
+    checks.update({f"collectives in a graph, {shape!r} (NCCL, one rank): graphed = eager bit for "
+                   "bit at 5 steps and 0": ok for shape, ok in found.items()})
     return {"checks": checks, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "max_abs_err": err, "while_iteration_ms": t_loop / k}
+
+
+# Where the probe's collectives sit: in a plain graph (no conditional node);
+# in a WHILE body; in both bodies of an IF; once before a loop and in its
+# body (the first error's broadcast, then the step's collectives); in a
+# WHILE body and in an IF nested in it.
+NCCL_PROBE_SHAPES = ("plain", "while", "if", "outer+while", "while>if")
+
+
+def _nccl_program(x, flags, n, group, shape):
+    """The collective probe's program on a (rows, c) float64 ``x`` and a
+    (rows,) bool ``flags``: ``mix`` runs the port's three collectives (an
+    in-place sum, a gather of rows, float and bool, the first rank's
+    value), placed as ``shape`` says (``NCCL_PROBE_SHAPES``) in a loop of
+    ``n`` (a 0-d int64 tensor) steps or a branch on ``n > 0``."""
+    import torch
+
+    from uslam_tpu_torch.collectives import all_gather_rows, all_reduce_sum, from_first_rank
+    from uslam_tpu_torch.solvers import compiled
+
+    rows = x.shape[0]
+
+    def mix(y, f):
+        s = all_reduce_sum(y * 0.5 + 1.0, group)
+        g = all_gather_rows(s, group)[-rows:]
+        gf = all_gather_rows(f, group)[-rows:]
+        y = s + g * 1e-3 + gf.to(s.dtype)[:, None]
+        return from_first_rank(y / (1.0 + y.abs().max()), group), gf ^ (y[:, 0] > 0)
+
+    def other(y, f):
+        return from_first_rank(y - 1.0, group), all_gather_rows(f, group)[:rows]
+
+    def body(s):
+        y, f, i = s
+        y, f = mix(y, f)
+        if shape == "while>if":
+            y, f = compiled.cond(i % 2 == 0, mix, other, y, f, name="probe_nccl_if")
+        return y, f, i + 1
+
+    if shape == "plain":
+        return mix(x, flags)
+    if shape == "if":
+        return compiled.cond(n > 0, mix, other, x, flags, name="probe_nccl_if")
+    if shape == "outer+while":
+        x, flags = mix(x, flags)
+    zero = torch.zeros((), dtype=torch.int64, device=x.device)
+    return compiled.while_loop(lambda s: s[2] < n, body, (x, flags, zero),
+                               name="probe_nccl_while")
+
+
+def nccl_probe(mesh) -> dict:
+    """The port's collectives inside conditional bodies on ``mesh`` (NCCL):
+    for each of ``NCCL_PROBE_SHAPES``, the program graphed (one
+    ``compiled.call``, keyed by the group) against its eager run, bit for
+    bit, at 5 steps and at 0, with the body runs; the node types the graph
+    and each of its conditional bodies hold (``compiled.body_nodes``). A
+    capture or instantiation that fails is recorded with its error, the
+    line that raised and the node types read before, and fails the check.
+    Then the mesh's graphs are evicted. One rank shows torch's side (the
+    process group under a body's capture) and NCCL's one-rank copies, not
+    NCCL's kernels for two or more ranks."""
+    import traceback
+
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+
+    gen = torch.Generator(device=mesh.device).manual_seed(5 + mesh.rank)
+    x = torch.randn(16, 8, generator=gen, device=mesh.device, dtype=torch.float64)
+    flags = torch.rand(16, generator=gen, device=mesh.device) > 0.5
+    out = {"ok": {}, "nodes": {}, "errors": {}}
+    where = f"rank {mesh.rank} of {mesh.size}"
+    for shape in NCCL_PROBE_SHAPES:
+        ok, errors = True, []
+        for steps in (5, 0):
+            n = torch.tensor(steps, device=mesh.device)
+            compiled.reset_counts()
+            eager = _nccl_program(x, flags, n, mesh.group, shape)
+            eager_runs = {k: list(v) for k, v in compiled.runs.items()}
+            compiled.reset_counts()
+            try:
+                with compiled.recording_nodes():
+                    graphed = compiled.call(f"probe_nccl_{shape}", _nccl_program,
+                                            (x, flags, n), (mesh.group, shape), group=mesh.group)
+                torch.cuda.synchronize(mesh.device)
+            except Exception as e:  # the probe's finding: printed, and the check fails
+                frames = traceback.extract_tb(e.__traceback__)[-3:]
+                where_raised = "; ".join(f"{Path(f.filename).name}:{f.lineno} {f.line}"
+                                         for f in frames)
+                errors.append(f"{type(e).__name__}: {str(e).splitlines()[0]} (raised at "
+                              f"{where_raised}; nodes read {dict(compiled.body_nodes)})")
+                ok = False
+                break
+            if compiled.body_nodes:
+                out["nodes"][shape] = {k: v for k, v in compiled.body_nodes.items()}
+            compiled.settle_launches()
+            runs = {k: list(v) for k, v in compiled.runs.items()}
+            same = all(torch.equal(a, b) for a, b in zip(graphed, eager)) and runs == eager_runs
+            log(f"  NCCL in conditional bodies ({where}), {shape!r} at {steps} steps: graphed = "
+                f"eager bit for bit, body runs as eager: {same} (runs {runs})")
+            ok = ok and same
+        if errors:
+            out["errors"][shape] = errors[0]
+            log(f"  NCCL in conditional bodies ({where}), {shape!r}: FAILED: {errors[0]}")
+        else:
+            log(f"  NCCL in conditional bodies ({where}), {shape!r}: body graphs' nodes "
+                f"{out['nodes'].get(shape)}")
+        out["ok"][shape] = ok
+    evicted = compiled.evict_group(mesh.group)
+    log(f"  NCCL probe ({where}): {evicted} cached graphs of the group evicted")
+    return out
 
 
 def compiled_vs_eager(graph, values, cam, sig, huber, label: str) -> dict:
@@ -2882,10 +3047,20 @@ def chunk_reference(pairs_np, cfg):
 
 def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
     """Phase 12 (a): an NCCL group of one rank on cuda:0 in this process;
-    every collective runs and is an identity. ``pairs_np`` (C, 2, H, W)
-    uint8 go through the front end with ``cfg_fe`` (a UslamConfig)."""
-    import torch
+    every collective runs and is an identity. The 1k and the 2000-pose
+    banded survey's sharded solves graphed (one graph per solve, the
+    collectives in the WHILE body) against eager blocks of one step and the
+    single-device solves, bit for bit; ``sharded_lm_step`` graphed against
+    eager, Cholesky and banded; ``collectives.wait`` bounded by the group's
+    timeout; after ``close_mesh`` no cached graph holds the group.
+    ``pairs_np`` (C, 2, H, W) uint8 go through the front end with
+    ``cfg_fe`` (a UslamConfig)."""
+    import datetime
 
+    import torch
+    import torch.distributed as dist
+
+    from uslam_tpu_torch import collectives
     from uslam_tpu_torch.frontend import kernels
     from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.graph.values import values_retract
@@ -2896,41 +3071,60 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
         process_stereo_pairs_sharded,
         shard_landmarks,
         sharded_lm_step,
-        sharded_optimize_lm,
     )
-    from uslam_tpu_torch.parallel.mesh import close_mesh
+    from uslam_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, close_mesh
     from uslam_tpu_torch.pipeline import banded_solver_config
+    from uslam_tpu_torch.solvers import compiled
     from uslam_tpu_torch.solvers.banded import solve_schur_banded
     from uslam_tpu_torch.solvers.linearize import linearize_graph
     from uslam_tpu_torch.solvers.lm import optimize_lm
     from uslam_tpu_torch.solvers.schur import solve_schur
 
     mesh = make_mesh(0, 1, "cuda:0")
+    group = mesh.group
+    checks, out = {}, {}
+
+    def held(key) -> bool:
+        return key[3] is not None and key[3][0] is group
+
+    def step_modes(*args, **kw) -> tuple:
+        """``sharded_lm_step`` graphed (its capture), eagerly, graphed again
+        (a replay); (graphed, eager, host ms of the replay, of eager)."""
+        res, ms = {}, {}
+        for mode in (True, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[mode] = sharded_lm_step(*args, graphed=mode, **kw)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+        return res[True], res[False], ms[True], ms[False]
+
     try:
-        checks = {}
         # -- the 1k solve, landmark-sharded, against phase 7's solve --------------
         cfg, r = one_k["cfg"], one_k["result"]
         sc = cfg.solver
+        huber = cfg.noise.stereo_huber_delta
         cam = StereoCamera.from_config(cfg.camera, device="cuda")
         sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
         graph, values = shard_landmarks(r.graph, to_port(one_k["initial"], "cuda"), mesh)
         # Phase 7's solve was the process's first; time a warm one beside it.
+        optimize_lm(r.graph, values, cam, *sig, sc, huber)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, single = optimize_lm(r.graph, values, cam, *sig, sc, cfg.noise.stereo_huber_delta)
+        _, single = optimize_lm(r.graph, values, cam, *sig, sc, huber)
         torch.cuda.synchronize()
-        single_s, single_it = time.perf_counter() - t0, single.iterations
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        vals, stats = sharded_optimize_lm(graph, values, cam, *sig, mesh, sc,
-                                          cfg.noise.stereo_huber_delta)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"sharded_lm": dict(kernels.launch_counts)}
+        single_ms = (time.perf_counter() - t0) * 1e3
+        log("multi-device (a): NCCL, one rank on cuda:0, in this process")
+        pair = lm_graph_pair("1k sharded_optimize_lm (world size 1)", graph, values, cam, sig,
+                             huber, sc, mesh=mesh)
+        checks.update({f"multi-device (a): {k}": v for k, v in pair["checks"].items()})
+        vals, stats = pair["values"], pair["stats"]
+        out["1k"] = dict(pair, single_ms=single_ms, single_it=single.iterations)
+        launches = {"sharded_lm": pair["launches"]}
         n, m = values.num_poses, values.num_landmarks
         corr_bytes = (6 * n) ** 2 * 8 + 6 * n * 8
         gather_bytes = 3 * m * 8
-        lin = linearize_graph(graph, vals, cam, *sig, cfg.noise.stereo_huber_delta)
+        lin = linearize_graph(graph, vals, cam, *sig, huber)
 
         def solve():
             return solve_schur(lin, graph.stereo, n, m, sc.lambda_initial,
@@ -2939,26 +3133,42 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
 
         solve()
         nccl_ms, nccl_n, solve_ms = _device_ms_by(solve, _is_nccl)
-        log("multi-device (a): NCCL, one rank on cuda:0, in this process")
-        log(f"  1k sharded_optimize_lm: {stats.iterations} LM iterations in {wall!r} s "
-            f"({wall * 1e3 / max(stats.iterations, 1)!r} ms per iteration); optimize_lm again "
-            f"just before it {single_it} in {single_s!r} s ({single_s * 1e3 / max(single_it, 1)!r} "
-            f"ms per iteration; phase 7's, the process's first solve, "
-            f"{r.metrics['solve_seconds']!r} s); error {stats.final_error!r} (phase 7 "
+        it = max(stats.iterations, 1)
+        log(f"  1k sharded, host ms per iteration: graphed {pair['graphed_ms'] / it!r}, eager "
+            f"blocks of 1 {pair['eager1_ms'] / it!r}, the single-device graphed solve just "
+            f"before {single_ms / max(single.iterations, 1)!r} ({single.iterations} iterations); "
+            f"host reads per solve graphed {pair['reads']}, eager {pair['eager1_reads']}; "
+            f"capture ms {pair['capture_ms']!r}; error {stats.final_error!r} (phase 7 "
             f"{r.stats.final_error!r}); launches {launches['sharded_lm']}")
         log(f"  collectives per LM iteration: all-reduce of H_corr + g_corr {corr_bytes} B "
             f"(6N = {6 * n}, float64), all-gather of the landmark delta {gather_bytes} B, "
             f"broadcast of the error 4 B; one sharded solve_schur at the solution: NCCL "
             f"kernels {nccl_n}, {nccl_ms!r} ms of its {solve_ms!r} ms device time")
-        checks["multi-device (a): 1k sharded LM = phase 7's LM (iterations, final error, values "
-               "bit-identical)"] = (
+        checks["multi-device (a): 1k sharded LM, graphed, = phase 7's LM (iterations, final "
+               "error, values bit-identical)"] = (
             stats.iterations == r.stats.iterations and stats.final_error == r.stats.final_error
             and _tree_equal(vals, r.values))
-        del lin, vals, graph, values
+        del lin, vals, pair
+        # One Cholesky step (the 1k's reduced solver) at the initial values.
+        kw1 = dict(refine_iters=sc.refine_iters, jitter=sc.cholesky_jitter, diag_damping=True,
+                   eliminate_velocities=True)
+        lin = linearize_graph(r.graph, values, cam, *sig)
+        ref = values_retract(values, solve_schur(lin, r.graph.stereo, n, m, sc.lambda_initial,
+                                                 **kw1))
+        del lin
+        step_g, step_e, g_ms, e_ms = step_modes(graph, values, cam, *sig, sc.lambda_initial,
+                                                mesh, **kw1)
+        log(f"  1k Cholesky sharded_lm_step: graphed {g_ms!r} ms (replay), eager {e_ms!r} ms")
+        checks["multi-device (a): 1k Cholesky sharded step, graphed, = single-device step "
+               "(bit-identical)"] = _tree_equal(step_g, ref)
+        checks["multi-device (a): 1k Cholesky sharded step graphed = eager "
+               "(bit-identical)"] = _tree_equal(step_g, step_e)
+        del step_g, step_e, ref, graph, values
 
-        # -- one banded step on the 2000-pose survey -----------------------------
-        sgraph, svalues = survey["graph"], survey["values"]
+        # -- the 2000-pose survey, banded: the sharded solve and one step ----------
+        sgraph, svalues, sinit = survey["graph"], survey["values"], survey["initial"]
         scfg = banded_solver_config(survey["cfg"].solver, sgraph)
+        shuber = survey["cfg"].noise.stereo_huber_delta
         n, m = svalues.num_poses, svalues.num_landmarks
         kw = dict(refine_iters=scfg.banded_refine_iters, jitter=scfg.cholesky_jitter,
                   diag_damping=True)
@@ -2966,23 +3176,33 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
         scam = StereoCamera.from_config(survey["cfg"].camera, device="cuda")
         ssig = (survey["cfg"].noise.dvl_sigma, survey["cfg"].noise.stereo_sigma,
                 survey["cfg"].imu.gravity)
+        ref_vals, ref_stats = optimize_lm(sgraph, sinit, scam, *ssig, scfg, shuber)
+        g_loc, v_loc = shard_landmarks(sgraph, sinit, mesh)
+        spair = lm_graph_pair(f"survey {n} banded sharded_optimize_lm (world size 1)", g_loc,
+                              v_loc, scam, ssig, shuber, scfg, mesh=mesh)
+        checks.update({f"multi-device (a): {k}": v for k, v in spair["checks"].items()})
+        checks[f"multi-device (a): survey {n} banded sharded LM, graphed, = the single-device "
+               "graphed solve (statistics, values bit-identical)"] = (
+            spair["stats"] == ref_stats and _tree_equal(spair["values"], ref_vals))
+        out["survey"] = spair
+        del spair, ref_vals
         lin = linearize_graph(sgraph, svalues, scam, *ssig)
         ref = values_retract(svalues, solve_schur_banded(
             lin, sgraph.stereo, n, m, lam, bw, corr_window=cw, **kw))
         del lin
         g_loc, v_loc = shard_landmarks(sgraph, svalues, mesh)
-        t0 = time.perf_counter()
-        out = sharded_lm_step(g_loc, v_loc, scam, *ssig, lam, mesh, reduced_solver="banded",
-                              band_w=bw, corr_window=cw, **kw)
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
+        step_g, step_e, g_ms, e_ms = step_modes(g_loc, v_loc, scam, *ssig, lam, mesh,
+                                                reduced_solver="banded", band_w=bw,
+                                                corr_window=cw, **kw)
         band_bytes = n * (bw + 1) * 36 * 8 + n * 6 * 8
-        log(f"  survey {n} banded sharded_lm_step: {step_s!r} s; all-reduce of the correction "
-            f"band {band_bytes} B (N={n}, band_w {bw}, float64), all-gather of the landmark "
-            f"delta {3 * m * 8} B")
-        checks[f"multi-device (a): survey {n} banded sharded step = single-device step "
-               "(bit-identical)"] = _tree_equal(out, ref)
-        del out, ref, g_loc, v_loc
+        log(f"  survey {n} banded sharded_lm_step: graphed {g_ms!r} ms (replay), eager "
+            f"{e_ms!r} ms; all-reduce of the correction band {band_bytes} B (N={n}, "
+            f"band_w {bw}, float64), all-gather of the landmark delta {3 * m * 8} B")
+        checks[f"multi-device (a): survey {n} banded sharded step, graphed, = single-device "
+               "step (bit-identical)"] = _tree_equal(step_g, ref)
+        checks[f"multi-device (a): survey {n} banded sharded step graphed = eager "
+               "(bit-identical)"] = _tree_equal(step_g, step_e)
+        del step_g, step_e, ref, g_loc, v_loc
 
         # -- the front end, frame-parallel ------------------------------------------
         ref = chunk_reference(pairs_np, cfg_fe)
@@ -3019,37 +3239,98 @@ def parallel_one_rank(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
                                        "jacobi_eigh": 0, "graph_cond": 0})
         checks["multi-device (a): the sharded LM launches preintegrate"] = (
             launches["sharded_lm"]["preintegrate"] > 0)
-        return {"checks": checks, "launches": launches,
-                "frontend": [a.cpu() for a in (*kp_l, *kp_r, idx, mask)]}
+        out["frontend"] = [a.cpu() for a in (*kp_l, *kp_r, idx, mask)]
+        out["launches"] = launches
+
+        # -- the host's wait after a replay, bounded by the group's timeout ---------
+        limit = collectives.timeout_s(group, mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.wait(group, mesh.device, "idle stream")
+        idle_ms = (time.perf_counter() - t0) * 1e3
+        short = dist.new_group([0], timeout=datetime.timedelta(seconds=WAIT_PROBE_TIMEOUT_S))
+        x = collectives.all_reduce_sum(torch.ones(1, device=mesh.device), short)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(WAIT_PROBE_CYCLES)
+        t0 = time.perf_counter()
+        try:
+            collectives.wait(short, mesh.device, "busy stream")
+            err = None
+        except Exception as e:  # noqa: BLE001 - printed and checked
+            err = e
+        waited_s = time.perf_counter() - t0
+        busy_after = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        busy_s = time.perf_counter() - t0
+        dist.destroy_process_group(short)
+        del x, short
+        log(f"  collectives.wait: group timeout read {limit!r} s (make_mesh's "
+            f"{DEFAULT_TIMEOUT_S!r}); idle stream {idle_ms!r} ms; busy stream, group timeout "
+            f"{WAIT_PROBE_TIMEOUT_S} s: {err!r} after {waited_s!r} s, stream still busy then "
+            f"{busy_after}, its work ended {busy_s!r} s after the wait began")
+        checks[f"multi-device (a): collectives.wait reads the group's timeout "
+               f"({DEFAULT_TIMEOUT_S} s) and returns at once on an idle stream"] = (
+            limit == DEFAULT_TIMEOUT_S and idle_ms < 100)
+        checks[f"multi-device (a): collectives.wait on a stream busy past a "
+               f"{WAIT_PROBE_TIMEOUT_S} s group timeout raises RuntimeError then, the stream "
+               "still busy"] = (
+            type(err) is RuntimeError and "timeout" in str(err)
+            and WAIT_PROBE_TIMEOUT_S <= waited_s < 4 * WAIT_PROBE_TIMEOUT_S and busy_after)
+        held_before = sum(map(held, compiled._CACHE))
     finally:
         close_mesh(mesh)
+    left = sum(map(held, compiled._CACHE))
+    log(f"  close_mesh: {held_before} cached graphs held the group before, {left} after")
+    checks["multi-device (a): after close_mesh no cached graph holds the group"] = (
+        held_before > 0 and left == 0)
+    out["checks"] = checks
+    return out
+
+
+def _probe_rank(mesh) -> dict:
+    """Phase 12 (b), one NCCL rank: the collective probe."""
+    return nccl_probe(mesh)
 
 
 def _parallel_rank(mesh, graph, initial, cam_cfg, sig, huber, solver_cfg, pairs_np, fcfg):
-    """Phase 12 (b), one NCCL rank: the float64 1k LM (its wall s, the NCCL
-    device ms of one sharded solve at its end, and the ms of one H_corr
-    all-reduce alone) and the front end."""
+    """Phase 12 (b), one NCCL rank: the float64 1k LM graphed (the
+    process's first solve, with its capture, then a warm one) and in eager
+    blocks of one step, with each one's wall s and host reads, the
+    capture's host ms; the same over ``PARALLEL_BLOCKS_ITERS`` iterations
+    (more than one block); the NCCL device ms of one sharded solve at its
+    end, and the ms of one H_corr all-reduce alone; the front end."""
     import torch
     import torch.distributed as dist
 
+    from uslam_tpu_torch.device import cast_tree
     from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.parallel import (
         process_stereo_pairs_sharded,
         shard_landmarks,
         sharded_optimize_lm,
     )
+    from uslam_tpu_torch.solvers import compiled
     from uslam_tpu_torch.solvers.linearize import linearize_graph
     from uslam_tpu_torch.solvers.schur import solve_schur
 
     cam = StereoCamera.from_config(cam_cfg, device=mesh.device, dtype=torch.float64)
     g, v = shard_landmarks(graph, initial, mesh)
-    walls = []
-    for _ in range(2):  # the process's first solve, then a warm one
+
+    def run(cfg, graphed: bool) -> dict:
+        compiled.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vals, stats = sharded_optimize_lm(g, v, cam, *sig, mesh, solver_cfg, huber)
+        vals, stats = sharded_optimize_lm(g, v, cam, *sig, mesh, cfg, huber, graphed=graphed)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        return {"s": time.perf_counter() - t0, "reads": sum(compiled.reads.values()),
+                "replays": dict(compiled.replays), "capture_ms": dict(compiled.capture_ms),
+                "values": type(vals)(*(a.cpu() for a in vals)), "stats": stats}
+
+    # Each: the first with its capture, a warm one, eager blocks of 1.
+    runs = [run(solver_cfg, mode) for mode in (True, True, False)]
+    blocks_cfg = dataclasses.replace(solver_cfg, max_iterations=PARALLEL_BLOCKS_ITERS)
+    blocks = [run(blocks_cfg, mode) for mode in (True, True, False)]
+    vals = cast_tree(runs[1]["values"], torch.float64, mesh.device)
     lin = linearize_graph(g, vals, cam, *sig, huber)
 
     def solve():
@@ -3076,14 +3357,109 @@ def _parallel_rank(mesh, graph, initial, cam_cfg, sig, huber, solver_cfg, pairs_
     del buf
     kp_l, kp_r, idx, mask = process_stereo_pairs_sharded(
         pairs_np[:, 0], pairs_np[:, 1], mesh, fcfg.frontend)
-    return (type(vals)(*(a.cpu() for a in vals)), stats,
-            [a.cpu() for a in (*kp_l, *kp_r, idx, mask)], walls, prof, allreduce_ms)
+    return {"runs": runs, "blocks": blocks,
+            "frontend": [a.cpu() for a in (*kp_l, *kp_r, idx, mask)], "prof": prof,
+            "allreduce_ms": allreduce_ms}
+
+
+def _stuck_peer_main(rank: int, world: int, tmp: str, results) -> None:
+    """Phase 12 (b), a stuck peer, one NCCL rank in a process of its own:
+    every rank runs a graph holding one all-reduce on a group whose
+    timeout is ``STUCK_TIMEOUT_S`` (capture and replay); then rank 0
+    replays it again and its peers, alive, never join. Rank 0's
+    ``collectives.wait`` must raise after the timeout; rank 0 then puts
+    its record on ``results`` before any CUDA call, and whether its replay
+    ended in another. Each process ends at once (``os._exit``): rank 0's
+    replay still runs, and nothing may wait on the device."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from uslam_tpu_torch import collectives
+    from uslam_tpu_torch.parallel import make_mesh
+    from uslam_tpu_torch.solvers import compiled
+
+    out = {"rank": rank, "err": None, "err_type": None}
+    store = None
+    try:
+        store = dist.FileStore(os.path.join(tmp, "store"), world)
+        mesh = make_mesh(rank, world, f"cuda:{rank}", store)
+        short = dist.new_group(list(range(world)),
+                               timeout=datetime.timedelta(seconds=STUCK_TIMEOUT_S))
+        x = torch.full((1024,), float(rank + 1), device=mesh.device)
+
+        def total():
+            return compiled.call("stuck_peer", collectives.all_reduce_sum, (x.clone(),),
+                                 (short,), group=short)
+
+        out["first"] = float(total()[0])
+        if rank == 0:
+            total()
+            t0 = time.perf_counter()
+            try:
+                collectives.wait(short, mesh.device, "stuck replay")
+            except Exception as e:  # noqa: BLE001 - returned and checked
+                out["err"], out["err_type"] = repr(e), type(e).__name__
+            out["waited_s"] = time.perf_counter() - t0
+            results.put(out)
+            out = {"rank": 0, "replay_ended": torch.cuda.current_stream().query()}
+        else:
+            store.wait(["stuck_done"])   # out of step until rank 0 is done
+    except Exception as e:  # noqa: BLE001 - returned, and the check fails
+        out["failed"] = repr(e)
+    finally:
+        if rank == 0 and store is not None:
+            store.set("stuck_done", "1")
+    results.put(out)
+    results.close()
+    results.join_thread()
+    os._exit(0)
+
+
+def stuck_peer(world: int) -> list:
+    """Run :func:`_stuck_peer_main` on ``world`` ranks; their records in
+    rank order, each rank's parts merged (a rank that put none is
+    missing). Ranks still alive after ``STUCK_RANKS_S`` are killed."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    outs: dict = {}
+    with tempfile.TemporaryDirectory(prefix="uslam_stuck_") as tmp:
+        procs = [ctx.Process(target=_stuck_peer_main, args=(r, world, tmp, results))
+                 for r in range(world)]
+        deadline = time.monotonic() + STUCK_RANKS_S
+        try:
+            for p in procs:
+                p.start()
+            while time.monotonic() < deadline and not (
+                    len(outs) == world and all("first" in o or "failed" in o for o in outs.values())
+                    and "replay_ended" in outs[0]):
+                try:
+                    o = results.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+                outs.setdefault(o["rank"], {}).update(o)
+        finally:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1.0))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return [outs[r] for r in sorted(outs)]
 
 
 def parallel_many_gpus(one_k: dict, pairs_np, cfg_fe, frontend_a) -> dict:
-    """Phase 12 (b): one NCCL rank per GPU when the host has two or more,
-    held to (a) (the front end exactly, the float64 1k LM at
-    tests/test_torch_parallel.py's tolerances)."""
+    """Phase 12 (b): one NCCL rank per GPU when the host has two or more:
+    the collective probe on every rank (ranks of their own, so a capture
+    that fails there leaves nothing behind; NCCL_DEBUG=WARN names the call
+    NCCL saw fail); the float64 1k LM graphed on every
+    rank, held to one device at tests/test_torch_parallel.py's tolerances,
+    every rank's values and statistics the same bits, and each rank's
+    graphed solve = its eager blocks of one step bit for bit; the front
+    end held to (a) exactly."""
     import numpy as np
     import torch
 
@@ -3091,7 +3467,7 @@ def parallel_many_gpus(one_k: dict, pairs_np, cfg_fe, frontend_a) -> dict:
     from uslam_tpu_torch.geometry.camera import StereoCamera
     from uslam_tpu_torch.interop import to_port
     from uslam_tpu_torch.parallel.launch import run_ranks
-    from uslam_tpu_torch.solvers.lm import optimize_lm
+    from uslam_tpu_torch.solvers.lm import SHARDED_BLOCK, optimize_lm
 
     cfg, r = one_k["cfg"], one_k["result"]
     n_gpu = torch.cuda.device_count()
@@ -3116,32 +3492,102 @@ def parallel_many_gpus(one_k: dict, pairs_np, cfg_fe, frontend_a) -> dict:
                                           solver, huber)
         torch.cuda.synchronize()
         ref_s.append(time.perf_counter() - t0)
+    os.environ.setdefault("NCCL_DEBUG", "WARN")   # read by the spawned ranks
+    probes = run_ranks(_probe_rank, world, device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
     t0 = time.perf_counter()
     outs = run_ranks(_parallel_rank, world, graph, initial, cfg.camera, sig, huber, solver,
-                     pairs_np, cfg_fe, device="cuda")
+                     pairs_np, cfg_fe, device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
     wall = time.perf_counter() - t0
+    stuck = stuck_peer(world)
+    log(f"multi-device (b): stuck peer, {world} ranks, group timeout {STUCK_TIMEOUT_S} s: "
+        f"{stuck}")
+    total = world * (world + 1) / 2
+    stuck_ok = (len(stuck) == world and not any("failed" in o for o in stuck)
+                and all(o["first"] == total for o in stuck)
+                and stuck[0]["err_type"] == "RuntimeError" and "timeout" in stuck[0]["err"]
+                and STUCK_TIMEOUT_S <= stuck[0]["waited_s"] < STUCK_TIMEOUT_S + 1
+                and stuck[0].get("replay_ended") is False
+                and all(o["err"] is None for o in stuck[1:]))
+    graphed = [o["runs"][1] for o in outs]
     lm_ok = all(
-        stats.iterations == ref_stats.iterations
-        and math.isclose(stats.final_error, ref_stats.final_error, rel_tol=PARALLEL_ERROR_RTOL)
+        run["stats"].iterations == ref_stats.iterations
+        and math.isclose(run["stats"].final_error, ref_stats.final_error,
+                         rel_tol=PARALLEL_ERROR_RTOL)
         and all(np.allclose(a.numpy(), b.cpu().numpy(), rtol=0, atol=PARALLEL_VALUES_ATOL)
-                for a, b in zip(vals, ref_vals))
-        for vals, stats, *_ in outs)
-    fe_ok = all(all(torch.equal(a, b) for a, b in zip(out[2], frontend_a)) for out in outs)
+                for a, b in zip(run["values"], ref_vals))
+        for run in graphed)
+    ranks_same = all(run["stats"] == graphed[0]["stats"]
+                     and _tree_equal(run["values"], graphed[0]["values"]) for run in graphed)
+    graphed_eager = all(o["runs"][1]["stats"] == o["runs"][2]["stats"]
+                        and _tree_equal(o["runs"][1]["values"], o["runs"][2]["values"])
+                        for o in outs)
+    blocks = max(1, math.ceil(ref_stats.iterations / SHARDED_BLOCK))
+    replays_ok = all(o["runs"][1]["replays"] == {"lm_start": 1, "lm_block": blocks}
+                     and o["runs"][1]["reads"] == blocks + 1 for o in outs)
+    # Over more than one block: the ranks read "active" between blocks and
+    # replay as many blocks each.
+    multi = [o["blocks"][1] for o in outs]
+    multi_it = multi[0]["stats"].iterations
+    multi_blocks = math.ceil(multi_it / SHARDED_BLOCK)
+    multi_same = all(run["stats"] == multi[0]["stats"]
+                     and _tree_equal(run["values"], multi[0]["values"]) for run in multi)
+    multi_eager = all(o["blocks"][1]["stats"] == o["blocks"][2]["stats"]
+                      and _tree_equal(o["blocks"][1]["values"], o["blocks"][2]["values"])
+                      for o in outs)
+    multi_reads = multi_blocks >= 2 and all(
+        run["replays"] == {"lm_start": 1, "lm_block": multi_blocks}
+        and run["reads"] == multi_blocks + 1 for run in multi)
+    fe_ok = all(all(torch.equal(a, b) for a, b in zip(o["frontend"], frontend_a)) for o in outs)
     log(f"multi-device (b): {world} NCCL ranks, one per GPU, in {wall!r} s (spawn included): "
-        f"float64 1k LM {[o[1].iterations for o in outs]} iterations, final errors "
-        f"{[o[1].final_error for o in outs]} (one device {ref_stats.final_error!r} in "
-        f"{ref_s[0]!r} s cold, {ref_s[1]!r} s warm)")
-    for r_, out in enumerate(outs):
-        (nccl_ms, nccl_n, solve_ms), it = out[4], max(out[1].iterations, 1)
-        log(f"  rank {r_}: LM {out[3][0]!r} s cold, {out[3][1]!r} s warm "
-            f"({out[3][1] * 1e3 / it!r} ms per iteration); one sharded solve_schur at its end: "
-            f"NCCL kernels {nccl_n}, {nccl_ms!r} ms of {solve_ms!r} ms device time; "
-            f"the {(6 * r.values.num_poses) ** 2 * 8} B all-reduce alone {out[5]!r} ms")
-    return {
-        f"multi-device (b): {world} ranks, float64 1k LM = one rank ({PARALLEL_LM_ITERS} "
+        f"float64 1k LM graphed {[run['stats'].iterations for run in graphed]} iterations, "
+        f"final errors {[run['stats'].final_error for run in graphed]} (one device "
+        f"{ref_stats.final_error!r} in {ref_s[0]!r} s cold, {ref_s[1]!r} s warm)")
+    for r_, o in enumerate(outs):
+        (nccl_ms, nccl_n, solve_ms) = o["prof"]
+        first, warm, eager = o["runs"]
+        it = max(warm["stats"].iterations, 1)
+        log(f"  rank {r_}: LM graphed {first['s']!r} s with its capture (capture host ms "
+            f"{first['capture_ms']}), {warm['s']!r} s warm ({warm['s'] * 1e3 / it!r} ms per "
+            f"iteration, host reads {warm['reads']}, graph launches {warm['replays']}); eager "
+            f"blocks of 1 {eager['s']!r} s ({eager['s'] * 1e3 / it!r} ms per iteration, host "
+            f"reads {eager['reads']}); one sharded solve_schur at its end: NCCL kernels "
+            f"{nccl_n}, {nccl_ms!r} ms of {solve_ms!r} ms device time; the "
+            f"{(6 * r.values.num_poses) ** 2 * 8} B all-reduce alone {o['allreduce_ms']!r} ms")
+    for r_, o in enumerate(outs):
+        first, warm, eager = o["blocks"]
+        it = max(warm["stats"].iterations, 1)
+        log(f"  rank {r_}, max_iterations {PARALLEL_BLOCKS_ITERS}: {warm['stats'].iterations} "
+            f"iterations, final error {warm['stats'].final_error!r}; LM graphed "
+            f"{first['s']!r} s with its capture (capture host ms {first['capture_ms']}), "
+            f"{warm['s']!r} s warm ({warm['s'] * 1e3 / it!r} ms per iteration, host reads "
+            f"{warm['reads']}, graph launches {warm['replays']}); eager blocks of 1 "
+            f"{eager['s']!r} s ({eager['s'] * 1e3 / it!r} ms per iteration, host reads "
+            f"{eager['reads']})")
+    # What lm.SHARDED_BLOCK rests on: NCCL's kernels capture in a plain
+    # graph and not in a conditional body (printed above, rank by rank).
+    checks = {f"multi-device (b): {world} ranks, collectives in a plain graph = eager bit for "
+              "bit, every rank": all(probe["ok"]["plain"] for probe in probes)}
+    log(f"multi-device (b): collectives in conditional bodies, {world} ranks, graphed = eager: "
+        f"{[{k: v for k, v in probe['ok'].items() if k != 'plain'} for probe in probes]}")
+    checks.update({
+        f"multi-device (b): {world} ranks, float64 1k LM graphed = one rank ({PARALLEL_LM_ITERS} "
         f"iterations, error rtol {PARALLEL_ERROR_RTOL}, values atol {PARALLEL_VALUES_ATOL})": lm_ok,
+        f"multi-device (b): {world} ranks, every rank's graphed LM the same bits": ranks_same,
+        f"multi-device (b): {world} ranks, each rank's graphed LM = its eager blocks of 1, bit "
+        "for bit": graphed_eager,
+        f"multi-device (b): {world} ranks, graph launches lm_start 1, lm_block ceil(iterations "
+        f"/ {SHARDED_BLOCK}), host reads one more, every rank": replays_ok,
+        f"multi-device (b): {world} ranks, float64 1k LM graphed over {PARALLEL_BLOCKS_ITERS} "
+        "iterations, every rank the same bits": multi_same,
+        f"multi-device (b): {world} ranks, over {PARALLEL_BLOCKS_ITERS} iterations each rank's "
+        "graphed LM = its eager blocks of 1, bit for bit": multi_eager,
+        f"multi-device (b): {world} ranks, over {PARALLEL_BLOCKS_ITERS} iterations lm_block "
+        "ceil(iterations / 4) >= 2 and host reads one more, the same on every rank": multi_reads,
         f"multi-device (b): {world} ranks, front end = (a) exactly": fe_ok,
-    }
+        f"multi-device (b): {world} ranks, a stuck peer: rank 0's wait on its replay raises "
+        f"RuntimeError after its {STUCK_TIMEOUT_S} s timeout, the replay still running": stuck_ok,
+    })
+    return checks
 
 
 def parallel_phase(one_k: dict, survey: dict, pairs_np, cfg_fe) -> dict:
@@ -3320,31 +3766,45 @@ def _values_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg) -> dict:
-    """One LM solve graphed (``optimize_lm`` on the card: one graph, the
-    loop a WHILE node, its re-linearization an IF node, the CG another
-    WHILE node) against the same solve in eager blocks of one step: values
-    and statistics bit for bit; per solve its host reads, graph launches,
+def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg, mesh=None) -> dict:
+    """One LM solve graphed against the same solve in eager blocks of one
+    step: values and statistics bit for bit. ``optimize_lm`` on the card
+    is one graph, the loop a WHILE node, its re-linearization an IF node,
+    the CG another WHILE node; with ``mesh``, ``sharded_optimize_lm`` on
+    its rank's slice replays two plain graphs, the first linearization and
+    error (``"lm_start"``) and blocks of ``SHARDED_BLOCK`` gated steps
+    (``"lm_block"``, the collectives inside, the IF node too), reading
+    "active" after each block. Per solve its host reads, graph launches,
     steps run (masked = steps - iterations), linearizations (1 + the
-    accepted steps), CG iterations and the kernel launches its bodies ran
-    against the counts the code gives; host ms per iteration
+    accepted steps), CG iterations and the kernel launches its graphs and
+    bodies ran against the counts the code gives; host ms per iteration
     (synchronized; the graphed solve after its capture) and the capture's
-    host ms; the graph's span on the device (CUDA events around
-    ``solve_lm``, which reads nothing) over the solve's host wall. The
-    device's busy share is not measured: torch.profiler records no kernel
-    inside a conditional node's body."""
+    host ms; the host syncs of a replay of ``solve_lm`` under
+    ``torch.cuda.set_sync_debug_mode`` (none; with ``mesh`` the block
+    reads alone); the graphs' span on the device (CUDA events around
+    ``solve_lm``) over the solve's host wall. The device's busy share is
+    not measured: torch.profiler records no kernel inside a conditional
+    node's body."""
+    import warnings
+
     import torch
 
     from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.parallel import sharded_optimize_lm
     from uslam_tpu_torch.solvers import compiled
-    from uslam_tpu_torch.solvers.lm import optimize_lm, solve_lm
+    from uslam_tpu_torch.solvers.lm import SHARDED_BLOCK, optimize_lm, solve_lm
+
+    group = None if mesh is None else mesh.group
 
     def run(**kw):
         compiled.reset_counts()
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = optimize_lm(graph, initial, cam, *sig, solver_cfg, huber, **kw)
+        if mesh is None:
+            out = optimize_lm(graph, initial, cam, *sig, solver_cfg, huber, **kw)
+        else:
+            out = sharded_optimize_lm(graph, initial, cam, *sig, mesh, solver_cfg, huber, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts = {"reads": sum(compiled.reads.values()), "launches": dict(kernels.launch_counts),
@@ -3353,52 +3813,88 @@ def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg) -> di
                   "runs": {k: list(v) for k, v in compiled.runs.items()}}
         return out, ms, counts
 
+    # With a mesh, eager blocks of 1 before the capture too: does the
+    # group's graph slow its eager collectives?
+    before = run(graphed=False) if mesh is not None else None
     (v_first, s_first), first_ms, first = run()
     (v_g, s_g), graphed_ms, g = run()
-    (v_1, s_1), eager1_ms, e = run(graphed=False, block=1)
-    span_ms = device_span_ms(lambda: solve_lm(graph, initial, cam, *sig, solver_cfg, huber))
+    (v_1, s_1), eager1_ms, e = run(graphed=False)   # blocks of 1, the default
     it = s_g.iterations
+    blocks = max(1, math.ceil(it / SHARDED_BLOCK))
+    # The host syncs of one replay: none, or with a mesh one per block.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            solve_lm(graph, initial, cam, *sig, solver_cfg, huber, group)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = len(caught)
+    span_ms = device_span_ms(lambda: solve_lm(graph, initial, cam, *sig, solver_cfg, huber,
+                                              group))
     same = s_g == s_first == s_1 and all(_values_equal(v_g, v) for v in (v_first, v_1))
-    steps = g["runs"].get("lm_step", [0])[0]
+    if before is not None:
+        same = same and before[0][1] == s_g and _values_equal(before[0][0], v_g)
+        log(f"    eager blocks of 1 before the capture: {before[1] / it!r} host ms per "
+            "iteration")
     accepts, rejects = g["runs"].get("lm_linearize", [0, 0])
     cg = g["runs"].get("cg", [0])[0]
-    # From the code: the first linearization and error outside the loop,
-    # one error per step, one linearization per taken step; the condition
-    # kernel once before the loop, then per step the IF's and the loop's,
-    # and per CG solve its loop's first test and one per CG iteration.
-    expected = {"preintegrate": 2 + it + accepts,
-                "graph_cond": 1 + 2 * it + (it + cg if cg else 0)}
+    if mesh is None:
+        steps = g["runs"].get("lm_step", [0])[0]
+        # From the code: the first linearization and error outside the
+        # loop, one error per step, one linearization per taken step; the
+        # condition kernel once before the loop, then per step the IF's
+        # and the loop's, and per CG solve its loop's first test and one
+        # per CG iteration.
+        expected = {"preintegrate": 2 + it + accepts,
+                    "graph_cond": 1 + 2 * it + (it + cg if cg else 0)}
+        replays, reads, syncs_expected = {"lm_solve": 1}, 1, 0
+        launch_ok = steps == it
+    else:
+        # Blocks of SHARDED_BLOCK steps: a step after the stop (masked)
+        # computes its error too and takes the IF's else body.
+        steps = SHARDED_BLOCK * g["replays"].get("lm_block", 0)
+        expected = {"preintegrate": 2 + steps + accepts,
+                    "graph_cond": steps + (steps + cg if cg else 0)}
+        replays, reads, syncs_expected = {"lm_start": 1, "lm_block": blocks}, blocks + 1, blocks
+        launch_ok = 0 <= steps - it < SHARDED_BLOCK
     got = {k: g["launches"][k] for k in expected}
+    capture_ms = sum(first["capture_ms"].values())
     log(f"  {label}: {it} LM iterations, final error {s_g.final_error!r}, converged "
         f"{s_g.converged}; graphed = eager blocks of 1, values and statistics bit for bit: "
         f"{same}")
     log(f"    per graphed solve: host reads {g['reads']} (eager blocks of 1: {e['reads']}), graph "
         f"launches {g['replays']}, steps run {steps} ({steps - it} masked), linearizations "
-        f"{1 + accepts} = 1 + {accepts} accepted ({rejects} rejected), CG iterations {cg} "
-        f"(eager {e['runs'].get('cg', [0])[0]}); launches {got}, from the code {expected}; "
-        f"captures {first['captures']} on the first solve (host ms {first['capture_ms']}), "
-        f"{g['captures']} on the second")
+        f"{1 + accepts} = 1 + {accepts} accepted ({rejects} rejected or masked), CG iterations "
+        f"{cg} (eager {e['runs'].get('cg', [0])[0]}); launches {got}, from the code "
+        f"{expected}; captures {first['captures']} on the first solve (host ms "
+        f"{first['capture_ms']}), {g['captures']} on the second; host syncs in a replay of "
+        f"solve_lm {syncs}")
     log(f"    host ms per iteration: graphed {graphed_ms / it!r} (first solve, with its capture, "
         f"{first_ms / it!r}), eager blocks of 1 {eager1_ms / it!r}; solve ms graphed "
         f"{graphed_ms!r}, eager {eager1_ms!r}")
-    log(f"    the graph on the device (CUDA events, copies in and out included): {span_ms!r} ms, "
-        f"{span_ms / graphed_ms!r} of the graphed solve's host wall")
+    log(f"    the graphs on the device (CUDA events, copies in and out included): {span_ms!r} "
+        f"ms, {span_ms / graphed_ms!r} of the graphed solve's host wall")
+    design = ("one graph launch and one host read per solve, no masked step" if mesh is None
+              else f"graph launches lm_start 1, lm_block ceil(iterations / {SHARDED_BLOCK}), "
+              "host reads one more, fewer masked steps than a block")
     checks = {
         f"LM {label}: graphed = eager blocks of 1, bit for bit": same,
-        f"LM {label}: one graph launch and one host read per solve, no masked step": (
-            g["replays"] == {"lm_solve": 1} and g["reads"] == 1 and steps == it),
+        f"LM {label}: {design}": g["replays"] == replays and g["reads"] == reads and launch_ok,
         f"LM {label}: linearizations 1 + accepted steps, as eager": (
-            g["runs"].get("lm_linearize") == e["runs"].get("lm_linearize")
-            and accepts + rejects == it),
+            accepts == e["runs"].get("lm_linearize", [0])[0] and accepts + rejects == steps),
         f"LM {label}: CG iterations graphed = eager": cg == e["runs"].get("cg", [0])[0],
-        f"LM {label}: launches in the WHILE and IF bodies as the code gives them": got == expected,
+        f"LM {label}: launches in the graphs and bodies as the code gives them": got == expected,
         f"LM {label}: no capture on a second solve of the same shapes": not g["captures"],
+        f"LM {label}: host syncs in a replay of solve_lm (set_sync_debug_mode): "
+        f"{syncs_expected}": syncs == syncs_expected,
     }
     return {"checks": checks, "iterations": it, "final_error": s_g.final_error,
             "reads": g["reads"], "graphed_ms": graphed_ms, "eager1_ms": eager1_ms,
-            "span_ms": span_ms,
-            "linearizations": 1 + accepts, "capture_ms": first["capture_ms"].get("lm_solve"),
-            "cg": cg}
+            "eager1_reads": e["reads"], "span_ms": span_ms, "syncs": syncs,
+            "linearizations": 1 + accepts, "capture_ms": capture_ms,
+            "cg": cg, "values": v_g, "stats": s_g, "launches": g["launches"]}
 
 
 def window_graph_check(online_c, cfg) -> dict:
@@ -3493,7 +3989,8 @@ def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
     checks.update(rs["checks"])
     if online_c is not None:
         checks.update(window_graph_check(online_c, cfg)["checks"])
-    log(f"  graph cache (it never evicts): {graph_cache_summary()}; device memory reserved "
+    log(f"  graph cache (close_mesh evicts a group's graphs, nothing else is): "
+        f"{graph_cache_summary()}; device memory reserved "
         f"{torch.cuda.memory_reserved() / 2**20!r} MiB")
     log(f"LM graph phase: {time.perf_counter() - t_phase!r} s")
     return {"checks": checks, "slice": slice_, "cg": cg, "1k": r1k, "survey": rs}
@@ -3522,10 +4019,10 @@ def only_surface(device_name: str) -> int:
     return finish_alone(checks, device_name)
 
 
-def only_parallel(device_name: str) -> int:
-    """``--only-parallel``: phase 12 alone, on inputs made for it (the 1k
-    solve, the 2000-pose survey at its initial values, the first chunk of a
-    2 s dive)."""
+def only_parallel(device_name: str, probe_checks: dict) -> int:
+    """``--only-parallel``: phase 12 alone (after phase 2's probe), on
+    inputs made for it (the 1k solve, the 2000-pose survey at its initial
+    values, the first chunk of a 2 s dive)."""
     import numpy as np
 
     from uslam_tpu_torch.config import UslamConfig
@@ -3540,8 +4037,10 @@ def only_parallel(device_name: str) -> int:
     pairs = np.clip(np.stack([seq.images_left[:c], seq.images_right[:c]], 1), 0, 255)
     s_seq, s_cfg = survey_problem(SURVEY_POSES[0])
     g_np, v_np, _, _ = pack_sequence(s_seq, s_cfg)
-    survey = {"graph": to_port(g_np, "cuda"), "values": to_port(v_np, "cuda"), "cfg": s_cfg}
-    checks = parallel_phase(load_1k(), survey, pairs.astype(np.uint8), cfg)["checks"]
+    survey = {"graph": to_port(g_np, "cuda"), "values": to_port(v_np, "cuda"),
+              "initial": to_port(v_np, "cuda"), "cfg": s_cfg}
+    checks = dict(probe_checks)
+    checks.update(parallel_phase(load_1k(), survey, pairs.astype(np.uint8), cfg)["checks"])
     return finish_alone(checks, device_name)
 
 
@@ -3633,7 +4132,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     probe = graph_cond_probe()
     if sys.argv[1:] == ["--only-parallel"]:
-        return only_parallel(device_name)
+        return only_parallel(device_name, probe["checks"])
     if sys.argv[1:] == ["--only-compiled"]:
         return only_compiled(device_name, probe["checks"])
     if sys.argv[1:] == ["--only-surface"]:
@@ -3803,6 +4302,7 @@ def main() -> int:
         "ATE finite and below the DVL odometry's": math.isfinite(m["ate_rmse_vs_gt"])
         and m["ate_rmse_vs_gt"] < ate_odom,
     }
+    checks.update(probe["checks"])
     profile_solve(result, cfg, "slice")
     log_graphs("phase 4 (slice)")
 

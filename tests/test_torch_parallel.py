@@ -50,7 +50,7 @@ from uslam_tpu_torch.solvers.banded import (
     measure_corr_window,
     solve_schur_banded,
 )
-from uslam_tpu_torch.solvers.lm import check_finite, optimize_lm
+from uslam_tpu_torch.solvers.lm import SHARDED_BLOCK, check_finite, optimize_lm
 
 STEP_DAMPING = 1.0
 BANDED_DAMPING = 1e-2
@@ -86,6 +86,10 @@ def _rank_work(mesh: Mesh, inp: dict) -> dict:
     g, v = shard_landmarks(inp["lm_graph"], inp["lm_values"], mesh)
     for name, cfg in inp["lm_cfgs"].items():
         out[f"lm_{name}"] = sharded_optimize_lm(g, v, inp["cam"], *sig, mesh, cfg)
+    # The graphed sharded solve's blocks, eagerly: a step after the stop
+    # must change no bit.
+    out["lm_schur_blocks"] = optimize_lm(g, v, inp["cam"], *sig, inp["lm_cfgs"]["schur"],
+                                         group=mesh.group, block=SHARDED_BLOCK)
 
     out["frames"] = extract_orb_frames_sharded(inp["imgs"], mesh, FRONTEND)
     out["pairs"] = process_stereo_pairs_sharded(inp["imgs"], inp["rights"], mesh, FRONTEND)
@@ -286,6 +290,16 @@ def test_sharded_lm_matches_single_device(single, ranks, solver):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-7)
             assert torch.equal(a, c)  # every rank holds the same bits
     assert ref_stats.final_error < ref_stats.initial_error
+
+
+def test_sharded_lm_in_blocks_equals_blocks_of_one(ranks):
+    """The graphed sharded solve replays blocks of SHARDED_BLOCK gated
+    steps; eagerly, blocks of that size (LM_ITERS = 3 iterations: one
+    masked step) equal blocks of 1 bit for bit, on every rank."""
+    for out in ranks:
+        (vals, stats), (ref_vals, ref_stats) = out["lm_schur_blocks"], out["lm_schur"]
+        assert stats == ref_stats
+        assert all(torch.equal(a, b) for a, b in zip(vals, ref_vals))
 
 
 def test_frames_sharded_match_batch_and_jax(inputs, single, ranks):

@@ -22,7 +22,10 @@
 // - uslam_capture_to / uslam_capture_end: capture a body from a second
 //   stream (cudaStreamBeginCaptureToGraph);
 // - uslam_cond_set: the kernel again, the last node of a WHILE body, which
-//   sets the loop's handle for its next test.
+//   sets the loop's handle for its next test;
+// - uslam_graph_node_types: the type of every node of a captured body
+//   (cudaGraphNodeType), so a check can show what a body holds (the
+//   collectives' nodes among them).
 //
 // Its plain version is a host read of the same flag (the eager primitives of
 // compiled.py). The kernel also counts what it decided into `counts`
@@ -36,6 +39,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 namespace {
 
@@ -131,4 +136,26 @@ extern "C" int uslam_capture_to(void* stream, void* graph) {
 extern "C" int uslam_capture_end(void* stream) {
   cudaGraph_t graph;
   return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph));
+}
+
+// The cudaGraphNodeType of each node of `graph` into `types` (at most
+// `capacity`); `count` gets the number of nodes. A null `types` asks for the
+// count alone. A node whose type cannot be read gets minus the error's code.
+extern "C" int uslam_graph_node_types(void* graph_, int* types, int capacity, int* count) {
+  cudaGraph_t graph = static_cast<cudaGraph_t>(graph_);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *count = static_cast<int>(n);
+  if (types == nullptr || n == 0) return 0;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(graph, nodes.data(), &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (size_t i = 0; i < n && i < static_cast<size_t>(capacity); ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    types[i] = err == cudaSuccess ? static_cast<int>(type) : -static_cast<int>(err);
+    if (err != cudaSuccess) cudaGetLastError();
+  }
+  return 0;
 }

@@ -93,6 +93,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "uslam_stream_create": [ctypes.POINTER(vp)],
         "uslam_capture_to": [vp, vp],
         "uslam_capture_end": [vp],
+        "uslam_graph_node_types": [vp, ctypes.POINTER(i32), i32, ctypes.POINTER(i32)],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

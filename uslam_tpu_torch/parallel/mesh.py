@@ -19,6 +19,15 @@ and :func:`uslam_tpu_torch.solvers.banded.solve_schur_banded` (``group=``),
 so the sharded path is the production solver: the whole LM policy runs
 unchanged through :func:`sharded_optimize_lm`, with either reduced solver.
 
+On the card each rank replays CUDA graphs with the NCCL collectives
+captured inside, where the JAX package compiles its ``shard_map`` into one
+program: the LM's first linearization (``"lm_start"``) and blocks of its
+steps (``"lm_block"``, one host read each: NCCL's collectives cannot sit in
+the body of a WHILE node, ``solvers/lm.py``), and one graph per call of
+:func:`sharded_lm_step` (``"sharded_lm_step"``). Such a graph belongs to the
+group: the cache keys it by the group, and :func:`close_mesh` drops it
+before the group goes.
+
 The JAX package runs one process over many devices (``shard_map``); torch
 runs one process per device. :func:`make_mesh` is called inside a rank
 (:func:`uslam_tpu_torch.parallel.launch.run_ranks` starts the ranks and
@@ -38,6 +47,7 @@ from uslam_tpu_torch.device import cast_tree, resolve_device
 from uslam_tpu_torch.geometry.camera import StereoCamera
 from uslam_tpu_torch.graph.builder import GraphArrays
 from uslam_tpu_torch.graph.values import Values, values_retract
+from uslam_tpu_torch.solvers import compiled
 from uslam_tpu_torch.solvers.banded import solve_schur_banded
 from uslam_tpu_torch.solvers.linearize import linearize_graph
 from uslam_tpu_torch.solvers.lm import LMStats, optimize_lm
@@ -89,7 +99,9 @@ def make_mesh(
 
 
 def close_mesh(mesh: Mesh) -> None:
-    """Leave the process group :func:`make_mesh` joined."""
+    """Leave the process group :func:`make_mesh` joined, after dropping
+    the cached graphs that hold its collectives."""
+    compiled.evict_group(mesh.group)
     dist.destroy_process_group(mesh.group)
 
 
@@ -131,17 +143,40 @@ def sharded_optimize_lm(
     mesh: Mesh,
     cfg: SolverConfig = SolverConfig(),
     huber_delta: float | None = None,
+    *,
+    graphed: bool | None = None,
 ) -> tuple[Values, LMStats]:
     """The production LM solve (:func:`uslam_tpu_torch.solvers.lm.optimize_lm`:
     velocity elimination, Marquardt damping, accept/reject, plateau stop)
     landmark-sharded over the mesh, on :func:`shard_landmarks`' output.
     Every rank returns the same values and stats; the single-device solve
-    up to the order of the all-reduce's sums (bit-identical on one rank)."""
+    up to the order of the all-reduce's sums (bit-identical on one rank).
+    ``graphed`` as in :func:`uslam_tpu_torch.solvers.lm.solve_lm` (default
+    on CUDA: replayed graphs, one host read per block of steps)."""
     _check_sharded(graph, initial, mesh)
     return optimize_lm(
         graph, initial, cam, dvl_sigma, stereo_sigma, gravity,
-        cfg=cfg, huber_delta=huber_delta, group=mesh.group,
+        cfg=cfg, huber_delta=huber_delta, group=mesh.group, graphed=graphed,
     )
+
+
+def _step(graph, values, cam, damping, dvl_sigma, stereo_sigma, gravity, group,
+          refine_iters, jitter, diag_damping, eliminate_velocities, reduced_solver, band_w,
+          corr_window) -> Values:
+    """One sharded step (:func:`sharded_lm_step`), the body of its graph."""
+    n, m = values.num_poses, values.num_landmarks
+    lin = linearize_graph(graph, values, cam, dvl_sigma, stereo_sigma, gravity)
+    if reduced_solver == "banded":
+        delta = solve_schur_banded(
+            lin, graph.stereo, n, m, damping, band_w, refine_iters=refine_iters,
+            jitter=jitter, diag_damping=diag_damping, corr_window=corr_window, group=group,
+        )
+    else:
+        delta = solve_schur(
+            lin, graph.stereo, n, m, damping, refine_iters=refine_iters, jitter=jitter,
+            diag_damping=diag_damping, eliminate_velocities=eliminate_velocities, group=group,
+        )
+    return values_retract(values, delta)
 
 
 def sharded_lm_step(
@@ -160,28 +195,28 @@ def sharded_lm_step(
     reduced_solver: str = "cholesky",
     band_w: int = 0,
     corr_window: int = 0,
+    *,
+    graphed: bool | None = None,
 ) -> Values:
     """One fixed-lambda Gauss-Newton/LM step, landmark-sharded, on
     :func:`shard_landmarks`' output: the production linear solve with the
     production defaults (velocity elimination, Marquardt damping).
     ``reduced_solver="banded"`` takes the banded solve with ``band_w``
     and ``corr_window`` (``solvers.banded.measure_band_width`` /
-    ``measure_corr_window`` of the whole graph)."""
+    ``measure_corr_window`` of the whole graph). ``graphed`` (default: on
+    CUDA) replays the step's CUDA graph, cached per shape and solver, its
+    collectives inside; ``graphed=False`` runs it eagerly."""
     if reduced_solver not in ("cholesky", "banded"):
         raise ValueError(f"reduced_solver={reduced_solver!r}: 'cholesky' or 'banded'")
     _check_sharded(graph, values, mesh)
-    n, m = values.num_poses, values.num_landmarks
-    lin = linearize_graph(graph, values, cam, dvl_sigma, stereo_sigma, gravity)
-    if reduced_solver == "banded":
-        delta = solve_schur_banded(
-            lin, graph.stereo, n, m, damping, band_w, refine_iters=refine_iters,
-            jitter=jitter, diag_damping=diag_damping, corr_window=corr_window,
-            group=mesh.group,
-        )
-    else:
-        delta = solve_schur(
-            lin, graph.stereo, n, m, damping, refine_iters=refine_iters, jitter=jitter,
-            diag_damping=diag_damping, eliminate_velocities=eliminate_velocities,
-            group=mesh.group,
-        )
-    return values_retract(values, delta)
+    on_cuda = values.pose_trans.device.type == "cuda"
+    if graphed is None:
+        graphed = on_cuda
+    if graphed and not on_cuda:
+        raise ValueError("a graphed sharded_lm_step needs CUDA tensors")
+    statics = (dvl_sigma, stereo_sigma, gravity, mesh.group, refine_iters, jitter, diag_damping,
+               eliminate_velocities, reduced_solver, band_w, corr_window)
+    if graphed:
+        return compiled.call("sharded_lm_step", _step, (graph, values, cam, damping), statics,
+                             group=mesh.group)
+    return _step(graph, values, cam, damping, *statics)

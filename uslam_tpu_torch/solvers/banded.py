@@ -476,6 +476,10 @@ def solve_schur_banded(
         W, Y, g_l, cam_g, stereo.lm_obs_mask, n, band_w,
         corr_window=corr_window, lm_chunk=corr_lm_chunk,
     )
+    # The step's collectives: these two sums and the sum and gather of the
+    # landmark delta below. Nothing between them reads the host (a failed
+    # panel gives NaN, the LU's status is not read), so a CUDA graph holds
+    # them (the sharded LM's block of steps).
     all_reduce_sum(B_corr, group)
     all_reduce_sum(g_corr, group)
     bands = assemble_cam_bands(lin, stereo, n, damping, diag_damping)

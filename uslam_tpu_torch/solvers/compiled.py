@@ -17,7 +17,12 @@ host. Here each is captured once per input shape into a
 - the input trees' structure (NamedTuples and tuples, by type), each
   tensor leaf's shape, dtype, device and strides, and the value of every
   leaf that is not a tensor;
-- the static scalars (sigmas, gravity, Huber delta, a solver config).
+- the static scalars (sigmas, gravity, Huber delta, a solver config);
+- for a graph that holds collectives, its ``torch.distributed`` process
+  group (the object itself, so a destroyed group's id cannot name another
+  group's graph), this rank and the world size. Such a graph launches on
+  the group's communicator: :func:`evict_group` drops it before the group
+  is destroyed (``parallel.mesh.close_mesh``).
 
 The camera's intrinsics are tensor leaves and are copied in like the rest,
 so a call with another camera of the same shapes replays the same graph.
@@ -61,7 +66,9 @@ captured, when nothing ran) are added to
 a conditional body are multiplied by the body's runs, which the condition
 kernel counts on the device, when the host next reads them: in
 :func:`read` (the LM's one read of its statistics) or
-:func:`settle_launches`.
+:func:`settle_launches`. Within :func:`recording_nodes` a capture reads the
+node types of its graph and bodies into ``body_nodes`` (what a body holds:
+NCCL's event nodes, for one, which no body takes).
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ import time
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from uslam_tpu_torch import cuda_build
 from uslam_tpu_torch.cuda_build import launch_counts, load
@@ -81,6 +89,7 @@ replays: dict[str, int] = {}
 reads: dict[str, int] = {}
 runs: dict[str, list] = {}          # name -> [then or loop body runs, else runs]
 capture_ms: dict[str, float] = {}   # host ms of the warm-ups and captures, per name
+body_nodes: dict[str, dict] = {}    # name -> body index -> node type -> count (recording_nodes)
 _CACHE: dict = {}
 _POOLS: dict = {}
 _DEPTH = [0]        # > 0 while a body is warmed up or captured
@@ -89,6 +98,8 @@ _MAX_NODES = 64     # conditional nodes in one graph
 _BODIES: dict = {}  # (device, depth) -> (stream, memory pool) of conditional bodies
 _NESTING = [0]      # conditional bodies being captured
 _UNSETTLED: dict = {}  # id(entry) -> an entry replayed since its counts were read
+_RECORD = [False]   # inside recording_nodes()
+_PENDING: list = []  # (name, body index, body graph) of the capture under way, to read
 _IF, _WHILE = 0, 1
 
 
@@ -117,6 +128,7 @@ def reset_counts() -> None:
     reads.clear()
     runs.clear()
     capture_ms.clear()
+    body_nodes.clear()
 
 
 def capturing() -> bool:
@@ -181,6 +193,20 @@ def _leaves(name: str, trees) -> tuple:
     return struct, leaves
 
 
+@contextlib.contextmanager
+def recording_nodes():
+    """Within: each capture keeps its graph until it has read the node
+    types of the graph (``body_nodes[name]["graph"]``) and of every
+    conditional body (``body_nodes[node name][body index]``) into
+    :data:`body_nodes` (a failed read is recorded as ``{"error": ...}``),
+    then instantiates it. A check's tool: it shows what a graph holds."""
+    _RECORD[0] = True
+    try:
+        yield
+    finally:
+        _RECORD[0] = False
+
+
 def _capture(name: str, body: Callable, inputs: list) -> tuple:
     """Warm up ``body()`` on a side stream, then capture it; returns
     (graph, its outputs, the kernel launches it holds outside conditional
@@ -197,7 +223,8 @@ def _capture(name: str, body: Callable, inputs: list) -> tuple:
         if pool is None:
             pool = _POOLS[device] = torch.cuda.graph_pool_handle()
         before = dict(launch_counts)
-        graph = torch.cuda.CUDAGraph()
+        record = _RECORD[0]
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if record else torch.cuda.CUDAGraph()
         # The nodes' counts accumulate over every replay, so they live
         # outside the pools: memory a capture hands out is reused by the
         # graph's earlier nodes, in a loop's next iteration too.
@@ -210,6 +237,13 @@ def _capture(name: str, body: Callable, inputs: list) -> tuple:
             # A captured launch does not run; the replays count it.
             launches = {k: launch_counts[k] - before.get(k, 0) for k in launch_counts}
             launch_counts.update(before)
+            pending = list(_PENDING)
+            _PENDING.clear()
+        if record:
+            body_nodes.setdefault(name, {})["graph"] = _node_types(graph.raw_cuda_graph())
+            for body_name, index, body_graph in pending:
+                body_nodes.setdefault(body_name, {})[index] = _node_types(body_graph)
+            graph.instantiate()
     captures[name] = captures.get(name, 0) + 1
     capture_ms[name] = capture_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
     return graph, outputs, launches, nodes
@@ -224,15 +258,24 @@ def _replay(name: str, entry: _Entry) -> None:
     replays[name] = replays.get(name, 0) + 1
 
 
-def call(name: str, fn: Callable, trees: tuple, statics: tuple):
+def _group_key(group) -> tuple | None:
+    if group is None:
+        return None
+    return (group, dist.get_rank(group), dist.get_world_size(group))
+
+
+def call(name: str, fn: Callable, trees: tuple, statics: tuple, group=None):
     """``fn(*trees, *statics)`` through the graph cached for ``name``, the
     structure, shapes and strides of ``trees`` and the values of
     ``statics``; every tensor of ``trees`` must lie on one CUDA device.
+    ``group``: the process group whose collectives ``fn`` makes (every rank
+    of it must make the same calls); the key is then ``(name, structure,
+    statics, (group, rank, world size))``, else its last part is None.
     Inside another body (:func:`capturing`) ``fn`` runs as it is."""
     if capturing():
         return fn(*trees, *statics)
     struct, leaves = _leaves(name, trees)
-    key = (name, struct, tuple(statics))
+    key = (name, struct, tuple(statics), _group_key(group))
     with torch.cuda.device(leaves[0].device):
         entry = _CACHE.get(key)
         if entry is None:
@@ -250,6 +293,18 @@ def call(name: str, fn: Callable, trees: tuple, statics: tuple):
             dst.copy_(src)
         _replay(name, entry)
         return _map_tensors(torch.clone, entry.outputs)
+
+
+def evict_group(group) -> int:
+    """Drop every cached graph that holds ``group``'s collectives (after
+    reading the counts of those replayed since their last read); returns
+    how many. Call it before the group is destroyed: a replay would launch
+    on a dead communicator."""
+    settle_launches()
+    keys = [k for k in _CACHE if k[3] is not None and k[3][0] is group]
+    for k in keys:
+        del _CACHE[k]
+    return len(keys)
 
 
 # ---- reading the device's counts -------------------------------------------
@@ -389,6 +444,35 @@ def _body(node: _CondNode, graph: int, device: torch.device):
         launch_counts.update(before)
         code = lib.uslam_capture_end(stream.cuda_stream)
     _check(lib, code, f"{node.name}: body capture")
+    if _RECORD[0]:
+        _PENDING.append((node.name, len(node.launches) - 1, graph))
+
+
+# cudaGraphNodeType, by value
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "child graph", "empty", "event wait",
+               "event record", "semaphore signal", "semaphore wait", "mem alloc", "mem free",
+               "batch mem op", "conditional")
+
+
+def _node_types(graph: int) -> dict:
+    """Node type -> count of the nodes of a body ``graph`` whose capture
+    has ended, or ``{"error": ...}``."""
+    lib = load()
+    count = ctypes.c_int()
+    code = lib.uslam_graph_node_types(graph, None, 0, ctypes.byref(count))
+    types = (ctypes.c_int * max(count.value, 1))()
+    if code == 0:
+        code = lib.uslam_graph_node_types(graph, types, count.value, ctypes.byref(count))
+    if code != 0:
+        return {"error": f"{lib.uslam_cuda_error_string(code).decode()} ({code})"}
+    out: dict = {}
+    for t in types[: count.value]:
+        if t < 0:
+            label = f"unread: {lib.uslam_cuda_error_string(-t).decode()} ({-t})"
+        else:
+            label = _NODE_TYPES[t] if t < len(_NODE_TYPES) else f"type {t}"
+        out[label] = out.get(label, 0) + 1
+    return out
 
 
 def _set(node: _CondNode, flag: torch.Tensor) -> None:

@@ -27,9 +27,9 @@ graph's shapes and the solver settings the step reads: the first
 linearization and error, then a WHILE node whose body is one step (its
 re-linearization an IF node, its CG another WHILE node). A solve launches
 one graph and runs no step after the stop; :func:`optimize_lm` reads the
-host once, for the statistics. On the CPU, with ``debug_nans`` and with
-``group`` the same steps run eagerly in blocks of ``block`` (default 1):
-one host read of "active" per block and one of the accept flag per step.
+host once, for the statistics. On the CPU and with ``debug_nans`` the same
+steps run eagerly in blocks of ``block`` (default 1): one host read of
+"active" per block and one of the accept flag per step.
 
 The default linear solver is the landmark Schur complement with velocity
 elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
@@ -49,7 +49,14 @@ With the flag off no check runs and no host read is added.
 process group (:func:`uslam_tpu_torch.parallel.mesh.sharded_optimize_lm`):
 every rank runs the loop, the solves carry the collectives, and the errors
 the step decides on are the first rank's, so every rank takes the same
-branch.
+branch. On the card each rank replays its own graphs of the solve, the
+collectives captured inside them (the JAX package compiles ``shard_map``
+around ``optimize_lm`` into one program): NCCL's kernels for two or more
+ranks do not instantiate in a conditional node's body, so the loop is the
+host's, over plain graphs of ``SHARDED_BLOCK`` gated steps (one read of
+"active" per block, after a wait bounded by the group's timeout, which
+raises when a peer never comes). ``debug_nans`` stays eager there, since
+its check of every rank reads the host.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from typing import NamedTuple
 
 import torch
 
-from uslam_tpu_torch.collectives import any_rank, from_first_rank
+from uslam_tpu_torch.collectives import any_rank, from_first_rank, wait
 from uslam_tpu_torch.config import SolverConfig
 from uslam_tpu_torch.geometry.camera import StereoCamera
 from uslam_tpu_torch.graph.builder import GraphArrays
@@ -132,6 +139,14 @@ def _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, gro
     floored_diag = diag_damping and min(cfg.lambda_initial, cfg.lambda_lower_bound) >= 1e-7
     jitter = cfg.cholesky_jitter if floored_diag else max(cfg.cholesky_jitter, 1e-7)
 
+    # With a group, every decision of the step reads values that are the
+    # same bits on every rank: this error (the first rank's), and lambda,
+    # the counts and flags derived from it. So every rank's loop takes the
+    # same number of turns and makes the same collectives. In graphs this
+    # is what keeps the ranks together: a rank that replayed one block more
+    # would wait inside the replay for peers that never come, where the
+    # group's watchdog and timeout do not reach (the host's wait after each
+    # block, collectives.wait, raises at the group's timeout then).
     def error(values: Values) -> torch.Tensor:
         err = graph_error(graph, values, cam, dvl_sigma, stereo_sigma, gravity, huber_delta)
         return from_first_rank(err, group)
@@ -245,8 +260,9 @@ def lm_step(state: LMState, p: _Problem, cfg: SolverConfig, check=None) -> LMSta
     the step, its accept test and, under ``lax.cond``
     (:func:`uslam_tpu_torch.solvers.compiled.cond`), the re-linearization
     of a taken step alone. Eagerly the branch is taken on the host (one
-    read); in a CUDA graph it is an IF node. After the stop it returns the
-    state unchanged."""
+    read); in a CUDA graph it is an IF node, which holds no collective (the
+    linearization is each rank's own, of the whole graph). After the stop
+    it returns the state unchanged."""
     new, take = _decide(state, p, cfg, check)
     lin = compiled.cond(take, p.linearize, lambda values: state.lin, new.values,
                         name="lm_linearize")
@@ -257,32 +273,43 @@ def _active(state: LMState, cfg: SolverConfig) -> torch.Tensor:
     return (state.iterations < cfg.max_iterations) & ~state.converged
 
 
-def _run(p: _Problem, initial: Values, cfg: SolverConfig, block: int, check) -> tuple:
-    """The JAX package's ``optimize_lm`` body: the first linearization and
-    error, then ``lax.while_loop`` over blocks of ``block`` steps
-    (:func:`uslam_tpu_torch.solvers.compiled.while_loop`); (values, the
-    statistics as 0-d tensors)."""
+def _start(p: _Problem, initial: Values, cfg: SolverConfig) -> LMState:
+    """The loop's first state: the first linearization and error."""
     # On the card lin holds clones of a replayed graph's outputs, so it
     # outlives the error's replays (another graph) and later linearizations.
     lin = p.linearize(initial)
     init_error = p.error(initial)
     dev = init_error.device
     count = torch.zeros((), dtype=torch.int64, device=dev)
-    state = LMState(
+    return LMState(
         initial, lin, init_error,
         torch.full((), cfg.lambda_initial, dtype=init_error.dtype, device=dev),
         count, count, torch.zeros((), dtype=torch.bool, device=dev),
     )
 
-    def steps(s: LMState) -> LMState:
-        for _ in range(block):
-            s = lm_step(s, p, cfg, check)
-        return s
 
-    state = compiled.while_loop(functools.partial(_active, cfg=cfg), steps, state,
-                                name="lm_step")
-    stats = LMStats(init_error, state.error, state.iterations, state.lam, state.converged)
-    return state.values, stats
+def _steps(s: LMState, p: _Problem, cfg: SolverConfig, block: int, check=None) -> LMState:
+    for _ in range(block):
+        s = lm_step(s, p, cfg, check)
+    return s
+
+
+def _stats(init_error: torch.Tensor, state: LMState) -> LMStats:
+    return LMStats(init_error, state.error, state.iterations, state.lam, state.converged)
+
+
+def _run(p: _Problem, initial: Values, cfg: SolverConfig, block: int, check) -> tuple:
+    """The JAX package's ``optimize_lm`` body: the first linearization and
+    error, then ``lax.while_loop`` over blocks of ``block`` steps
+    (:func:`uslam_tpu_torch.solvers.compiled.while_loop`); (values, the
+    statistics as 0-d tensors)."""
+    state = _start(p, initial, cfg)
+    init_error = state.error
+    state = compiled.while_loop(functools.partial(_active, cfg=cfg),
+                                functools.partial(_steps, p=p, cfg=cfg, block=block,
+                                                  check=check),
+                                state, name="lm_step")
+    return state.values, _stats(init_error, state)
 
 
 def _graph_solve(graph, cam, initial, dvl_sigma, stereo_sigma, gravity, huber_delta, cfg):
@@ -291,6 +318,48 @@ def _graph_solve(graph, cam, initial, dvl_sigma, stereo_sigma, gravity, huber_de
     p = _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, None,
                  initial.num_poses, initial.num_landmarks, None)
     return _run(p, initial, cfg, 1, None)
+
+
+# A collective of two or more NCCL ranks cannot sit in a conditional node's
+# body: NCCL leaves event record and event wait nodes in the graph it is
+# captured into, and a body holding them fails to instantiate ("invalid
+# argument"), while a plain graph holding them replays (chip_smoke.py's
+# collective probe, phase 12 (b); four H100s, torch 2.11 with CUDA 12.8). So a
+# graphed solve with a group, of any size, replays plain graphs: the first
+# linearization and error, then blocks of SHARDED_BLOCK steps gated by
+# ``active`` (a step after the stop changes no bit), with one host read of
+# ``active`` after each block. The step's re-linearization stays an IF node
+# and the CG a WHILE node: neither holds a collective.
+SHARDED_BLOCK = 4
+
+
+def _graph_start(graph, cam, initial, dvl_sigma, stereo_sigma, gravity, huber_delta, cfg,
+                 group) -> LMState:
+    p = _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, group,
+                 initial.num_poses, initial.num_landmarks, None)
+    return _start(p, initial, cfg)
+
+
+def _graph_block(graph, cam, state, dvl_sigma, stereo_sigma, gravity, huber_delta, cfg,
+                 group) -> LMState:
+    p = _problem(graph, cam, dvl_sigma, stereo_sigma, gravity, cfg, huber_delta, group,
+                 state.values.num_poses, state.values.num_landmarks, None)
+    return _steps(state, p, cfg, SHARDED_BLOCK)
+
+
+def _sharded_graph_solve(graph, cam, initial, statics: tuple, cfg: SolverConfig, group):
+    """The sharded solve as replays of two plain graphs (``"lm_start"``,
+    ``"lm_block"``): ceil(iterations / SHARDED_BLOCK) host reads, each
+    after a wait bounded by the group's timeout (``collectives.wait``)."""
+    state = compiled.call("lm_start", _graph_start, (graph, cam, initial), statics,
+                          group=group)
+    init_error = state.error
+    while True:
+        state = compiled.call("lm_block", _graph_block, (graph, cam, state), statics,
+                              group=group)
+        wait(group, init_error.device, "sharded LM block")
+        if not compiled.read([_active(state, cfg)], name="lm_block")[0]:
+            return state.values, _stats(init_error, state)
 
 
 def solve_lm(
@@ -312,10 +381,12 @@ def solve_lm(
     (module docstring); ``graph.stereo.lm_obs_idx``/``lm_obs_mask`` hold
     this rank's slice, everything else is the same on every rank.
 
-    ``graphed`` (default: on CUDA without ``debug_nans`` and ``group``)
-    replays the solve's CUDA graph (the loop a WHILE node: no host read);
-    ``graphed=False`` runs the same steps eagerly in blocks of ``block``
-    (default 1). A capture that fails raises."""
+    ``graphed`` (default: on CUDA without ``debug_nans``) replays the
+    solve's CUDA graph (the loop a WHILE node: no host read; with
+    ``group``, this rank's graphs of the first linearization and of blocks
+    of ``SHARDED_BLOCK`` steps, the collectives inside, one host read per
+    block); ``graphed=False`` runs the same steps eagerly in blocks of
+    ``block`` (default 1). A capture that fails raises."""
     if group is not None and cfg.linear_solver != "schur":
         raise ValueError("sharded LM requires the schur linear solver")
     if cfg.reduced_solver == "banded" and cfg.band_width <= 0:
@@ -323,18 +394,20 @@ def solve_lm(
             "reduced_solver='banded' needs band_width >= the max track "
             "span (solvers.banded.measure_band_width)"
         )
-    eligible = (initial.pose_trans.device.type == "cuda" and group is None
-                and not cfg.debug_nans)
+    eligible = initial.pose_trans.device.type == "cuda" and not cfg.debug_nans
     if graphed is None:
         graphed = eligible
     if graphed and not eligible:
-        raise ValueError("graphed LM needs CUDA tensors, no group and debug_nans off")
+        raise ValueError("graphed LM needs CUDA tensors and debug_nans off")
     if graphed and block is not None:
         raise ValueError("block applies to the eager LM (graphed=False) alone")
     k = block or 1
     if k < 1:
         raise ValueError(f"block {k} < 1")
     sig = (dvl_sigma, stereo_sigma, gravity)
+    if graphed and group is not None:
+        return _sharded_graph_solve(graph, cam, initial,
+                                    (*sig, huber_delta, graph_config(cfg), group), cfg, group)
     if graphed:
         return compiled.call("lm_solve", _graph_solve, (graph, cam, initial),
                              (*sig, huber_delta, graph_config(cfg)))

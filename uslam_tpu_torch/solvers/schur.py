@@ -159,6 +159,10 @@ def solve_schur(
     Hll_inv, g_l, U, V = landmark_elimination(lin, stereo, n, damping, diag_damping)
     m = g_l.shape[0]                                      # this rank's landmarks
     bands = assemble_cam_bands(lin, stereo, n, damping, diag_damping)
+    # The step's collectives: these two sums, and the sum and gather of
+    # back_substitute. Nothing between them reads the host, so a CUDA graph
+    # holds them (the sharded LM's block of steps). The CG's WHILE node below
+    # holds none: H_corr is summed before it.
     H_corr = all_reduce_sum(U @ V.T, group)               # (6N, 6N)
     g_corr = all_reduce_sum(U @ g_l.reshape(-1), group)   # (6N,)
     if check:
