@@ -16,8 +16,12 @@ Phases, each of which raises (exit code != 0) on failure:
    body (cuBLAS, cuSOLVER and ``jacobi_eigh`` inside) graphed against its
    eager run bit for bit at 5 steps and at 0, with its body runs and
    launches; the condition kernel against its plain version (a host read
-   of the flag), its time per launch in a graph beside its bound, a WHILE
-   iteration's time and the host read's. Then the collective probe
+   of the flag; ``Test.flag()`` read on the host, over a grid of counters,
+   values and thresholds with infinities and NaN, and stop flags), its
+   time per launch in a graph from a Test and from a flag beside its
+   bound, an empty kernel node's (the floor of a one-thread node), a WHILE
+   iteration whose body only counts (its test a Test, and the former
+   flag) and the host read's. Then the collective probe
    (``nccl_probe``) on an NCCL group of one rank on cuda:0: the port's three
    collectives (an in-place sum, a gather of float and bool rows, the first
    rank's value) in a plain graph, a WHILE body, both bodies of an IF, before
@@ -54,11 +58,11 @@ Phases, each of which raises (exit code != 0) on failure:
    plain version on tests/test_torch_eigh.py's cases (the same seeds) and a
    batch of 64 random symmetric 15 x 15, float32 and float64, to
    ``JACOBI_RTOL`` of the input's norm (eigenvalues and PSD projections;
-   bit-identity printed), then its time on the SPD 15 x 15 in float32
-   beside its bound (the bytes of A, w and V, or the 9 n^3 operations of a
-   symmetric eigendecomposition with vectors), its chain of dependent
-   rounds (a latency figure, apart from the bound), the plain version's
-   time and torch.linalg.eigh's.
+   bit-identity printed, and checked on the SPD 15 x 15), then its time on
+   the SPD 15 x 15 in float32 beside its bound (the bytes of A, w and V, or
+   the 9 n^3 operations of a symmetric eigendecomposition with vectors),
+   its chain of dependent rounds (a latency figure, apart from the bound),
+   the plain version's time and torch.linalg.eigh's.
    Then a torch.profiler breakdown of one front-end chunk's device time.
 4. slice: ``run_sequence`` with the default ``UslamConfig()`` (Schur +
    velocity elimination) on a rendered 20 s synthetic dive (100 stereo
@@ -103,11 +107,12 @@ Phases, each of which raises (exit code != 0) on failure:
    host read; the mode shown to raise on one), no capture on or after the
    first steady keyframe, and the graphed step equal to the eager one
    (``graphed=False``) bit for bit on the pass's last window, whose
-   marginal the Jacobi kernel is held to its plain version on and timed
-   on; prints per-keyframe host ms (median, p90) of the steady keyframes
-   beside keyframe 10's, the timing split, LM iterations and
-   linearizations per steady keyframe (the window LM a WHILE node that
-   stops when it converges, its re-linearization an IF node), one steady
+   marginal the Jacobi kernel is held to its plain version on (bit for bit)
+   and timed on beside ``torch.linalg.eigh``; prints per-keyframe host ms
+   (median, p90) of the steady keyframes beside keyframe 10's, the timing
+   split, LM iterations and linearizations per steady keyframe (the window
+   LM a WHILE node that stops when it converges, its re-linearization an IF
+   node), one steady
    keyframe under torch.profiler, and the window's landmarks by
    observation count; (a)'s last window graphed against eager bit for
    bit, and its IMU block against the 24-row path; the CUDA-graph captures
@@ -225,12 +230,16 @@ Phases, each of which raises (exit code != 0) on failure:
    iterations (as eager) and the launches of preintegrate and graph_cond
    against the counts the code gives; no host sync in a replay of
    ``solve_lm`` (``set_sync_debug_mode``); captures, the capture's host ms, host
-   ms per iteration and the device's busy share of one graphed solve; and
-   the online window step of phase 8's pass (c), graphed against eager, bit
-   for bit, with no capture, no host read and no masked step (its three
-   graphs replayed three times). Phase 8 checks that the device-resident
-   passes capture nothing on or after the first steady keyframe and that
-   their window LM reads nothing on the host.
+   ms per iteration and the device's busy share of one graphed solve; the
+   kernel nodes of the LM's and the CG's WHILE bodies on the CG slice,
+   captured with each loop test a ``compiled.Test`` (one condition kernel)
+   and with the former flag (three torch kernels more), one kernel node per
+   test, both graphs replayed in turns for their host ms per iteration and
+   equal bit for bit; and the online window step of phase 8's pass (c),
+   graphed against eager, bit for bit, with no capture, no host read and no
+   masked step (its three graphs replayed three times). Phase 8 checks that
+   the device-resident passes capture nothing on or after the first steady
+   keyframe and that their window LM reads nothing on the host.
 
 After each of phases 4-12 and 14 the CUDA graphs it captured and replayed
 are printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2 (with the
@@ -876,7 +885,7 @@ def check_jacobi() -> dict:
     import numpy as np
     import torch
 
-    worst = {"max_abs_err": 0.0, "rel_err": 0.0, "same": True}
+    worst = {"max_abs_err": 0.0, "rel_err": 0.0, "same": True, "same_spd15": True}
     b, n, seed = JACOBI_BATCH
     B = np.random.default_rng(seed).normal(size=(b, n, n))
     for dt in (torch.float32, torch.float64):
@@ -886,7 +895,8 @@ def check_jacobi() -> dict:
             r = jacobi_compare(name, torch.tensor(A, dtype=dt, device="cuda"))
             worst = {"max_abs_err": max(worst["max_abs_err"], r["max_abs_err"]),
                      "rel_err": max(worst["rel_err"], r["rel_err"]),
-                     "same": worst["same"] and r["same"]}
+                     "same": worst["same"] and r["same"],
+                     "same_spd15": worst["same_spd15"] and (r["same"] or name != "spd15")}
     worst.update(jacobi_times(torch.tensor(jacobi_case("spd15"), dtype=torch.float32,
                                            device="cuda"), "spd15"))
     return worst
@@ -982,39 +992,77 @@ def graph_cond_probe() -> dict:
             f, lambda: torch.ones((), device="cuda"), lambda: torch.zeros((), device="cuda")),
             (flag,), ())
         err = max(err, abs(float(got) - float(bool(flag))))
+    test_err, test_cases = test_kernel_check()
+    checks["conditional nodes: the condition kernel's loop test = Test.flag() read on the host, "
+           f"{test_cases} operand sets"] = test_err == 0
     # Its time: a graph of K more condition kernels after an IF node,
-    # against the graph with none; a WHILE node of N empty iterations.
+    # against the graph with none, from the flag and from a Test of the
+    # CG's form (an int64 counter below its limit, a float64 value above
+    # its threshold); K empty kernels in a graph against none (the floor
+    # of a one-thread node); a WHILE node of K iterations whose body only
+    # counts, its test a Test (the counter's + 1, then the condition
+    # kernel) or the former flag (+ 1, <, then the condition kernel).
     flag = torch.ones((), dtype=torch.bool, device="cuda")
+    ops = (torch.tensor(0, device="cuda"), torch.tensor(2.0, dtype=torch.float64, device="cuda"),
+           torch.tensor(1.0, dtype=torch.float64, device="cuda"))
 
-    def sets(k):
-        def fn(f):
+    def sets(k, form):
+        def fn(f, c, v, th):
             if compiled._warming_up():
                 return f
             node, bodies = compiled._node(compiled._IF, f, "timing")
             for b in bodies:
                 with compiled._body(node, b, f.device):
                     f.logical_not()
+            cond = f if form == "flag" else compiled.Test(c, 3, v, th)
             for _ in range(k):
-                compiled._set(node, f)
+                compiled._set(node, cond)
             return f
         return fn
 
+    def empties(k):
+        def fn(f):
+            out = f.clone()
+            lib, stream = cuda_build.load(), torch.cuda.current_stream().cuda_stream
+            for _ in range(k):
+                cuda_build.raise_on(lib, lib.uslam_empty_kernel(stream), "empty")
+            return out
+        return fn
+
     k = 1000
-    t_k = cuda_ms(lambda: compiled.call(f"probe_sets_{k}", sets(k), (flag,), ()), 20)
-    t_0 = cuda_ms(lambda: compiled.call("probe_sets_0", sets(0), (flag,), ()), 20)
-    kernel_ms = (t_k - t_0) / k
+    t_sets = {}
+    for form in ("flag", "test"):
+        t_k = cuda_ms(lambda: compiled.call(f"probe_sets_{form}_{k}", sets(k, form),
+                                            (flag, *ops), ()), 20)
+        t_0 = cuda_ms(lambda: compiled.call(f"probe_sets_{form}_0", sets(0, form),
+                                            (flag, *ops), ()), 20)
+        t_sets[form] = (t_k - t_0) / k
+    empty_ms = (cuda_ms(lambda: compiled.call(f"probe_empty_{k}", empties(k), (flag,), ()), 20)
+                - cuda_ms(lambda: compiled.call("probe_empty_0", empties(0), (flag,), ()), 20)) / k
     n_it = torch.tensor(k, device="cuda")
-    t_loop = cuda_ms(lambda: compiled.call("probe_loop", lambda n: compiled.while_loop(
+    t_loop = cuda_ms(lambda: compiled.call("probe_loop_test", lambda n: compiled.while_loop(
+        lambda i: compiled.Test(i, k), lambda i: i + 1, torch.zeros_like(n)), (n_it,), ()), 20)
+    t_loop_former = cuda_ms(lambda: compiled.call("probe_loop", lambda n: compiled.while_loop(
         lambda i: i < n, lambda i: i + 1, torch.zeros_like(n)), (n_it,), ()), 20)
     t0 = time.perf_counter()
     for _ in range(200):
         bool(flag)
+    read_ms = (time.perf_counter() - t0) * 1e3 / 200
+    test = compiled.Test(*ops[:1], 3, *ops[1:])
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(test.flag())
     plain_ms = (time.perf_counter() - t0) * 1e3 / 200
-    bound, bound_by = bound_ms(1 + 8 + 8, 0)
-    log(f"  condition kernel: {kernel_ms!r} ms per launch in a graph ({k} in one graph, less "
-        f"the graph without them); a WHILE iteration of an empty body {t_loop / k!r} ms; the "
-        f"plain version (a host read of the flag) {plain_ms!r} ms; bound {bound!r} ms "
-        f"({bound_by}: the flag's byte, one count read and written); max abs err {err}")
+    # The CG's test: an 8-byte counter, two 8-byte values read, one 8-byte
+    # count read and written; two comparisons and their and.
+    bound, bound_by = bound_ms(8 + 8 + 8 + 16, 3)
+    log(f"  condition kernel: per launch in a graph ({k} in one graph, less the graph without "
+        f"them) {t_sets['test']!r} ms from a Test (the CG's form), {t_sets['flag']!r} ms from a "
+        f"flag; an empty kernel node {empty_ms!r} ms; a WHILE iteration whose body only counts "
+        f"{t_loop / k!r} ms (a Test: 2 kernel nodes), {t_loop_former / k!r} ms (the former "
+        f"flag: 3 kernel nodes); the plain version (Test.flag() and a host read) {plain_ms!r} "
+        f"ms, a host read of a flag alone {read_ms!r} ms; bound {bound!r} ms ({bound_by}: the "
+        f"test's operands, one count read and written); max abs err {max(err, test_err)}")
     checks["conditional nodes: the condition kernel = the host's read of the flag"] = err == 0
     from uslam_tpu_torch.parallel import make_mesh
     from uslam_tpu_torch.parallel.mesh import close_mesh
@@ -1026,8 +1074,54 @@ def graph_cond_probe() -> dict:
         close_mesh(mesh)
     checks.update({f"collectives in a graph, {shape!r} (NCCL, one rank): graphed = eager bit for "
                    "bit at 5 steps and 0": ok for shape, ok in found.items()})
-    return {"checks": checks, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": err, "while_iteration_ms": t_loop / k}
+    return {"checks": checks, "ms": t_sets["test"], "flag_ms": t_sets["flag"],
+            "empty_ms": empty_ms, "plain_ms": plain_ms, "read_ms": read_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": max(err, test_err),
+            "while_iteration_ms": t_loop / k, "while_iteration_former_ms": t_loop_former / k}
+
+
+def test_kernel_check() -> tuple:
+    """The condition kernel's loop test against its plain version
+    (``Test.flag()`` read on the host): an IF node set from a Test, whose
+    bodies write 1 and 0, replayed over a grid of operands: counters below,
+    at and above the limit; values and thresholds with an infinity and NaN,
+    in float32 and float64; stop true and false; and the LM's form (no
+    value). Returns (max abs err, operand sets)."""
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+
+    limit = 3
+
+    def decide(c, v, th, s):
+        out = torch.full((), -1.0, device="cuda")
+        if compiled._warming_up():
+            return out
+        test = compiled.Test(c, limit, stop=s) if v is None else compiled.Test(c, limit, v, th, s)
+        node, (then_graph, else_graph) = compiled._node(compiled._IF, test, "probe_test")
+        with compiled._body(node, then_graph, c.device):
+            out.fill_(1.0)
+        with compiled._body(node, else_graph, c.device):
+            out.fill_(0.0)
+        return out
+
+    err, cases = 0.0, 0
+    floats = (float("-inf"), 1.0, 2.0, float("nan"))
+    for count in (2, 3, 4):
+        c = torch.tensor(count, device="cuda")
+        for stop in (False, True):
+            s = torch.tensor(stop, device="cuda")
+            operands = [(None, None)] + [
+                (torch.tensor(v, dtype=dt, device="cuda"),
+                 torch.tensor(th, dtype=dt, device="cuda"))
+                for dt in (torch.float32, torch.float64) for v in floats for th in floats]
+            for v, th in operands:
+                got = compiled.call("probe_test", decide, (c, v, th, s), ())
+                test = (compiled.Test(c, limit, stop=s) if v is None
+                        else compiled.Test(c, limit, v, th, s))
+                err = max(err, abs(float(got) - float(bool(test.flag()))))
+                cases += 1
+    return err, cases
 
 
 # Where the probe's collectives sit: in a plain graph (no conditional node);
@@ -2028,6 +2122,8 @@ def online_phase(seq, cfg) -> dict:
                "with no host read"] = p["guarded"] == p["steady"] + 1
         checks[f"online {p['label']}: the graphed steady step = the eager one, bit for bit"] = (
             step["same"])
+        checks[f"online {p['label']}: jacobi_eigh bit-identical to its plain version on the "
+               "last window marginal"] = step["jacobi"]["same"]
     checks["online (b): no pending keyframe after flush()"] = b["online"]._pending is None
     checks["online (b): fused steps ran"] = any(e.get("pipelined") for e in b["online"].timings)
     checks[f"online (b) within {ONLINE_DIVERGENCE_M} m of (a)"] = div[b["label"]] < ONLINE_DIVERGENCE_M
@@ -3897,6 +3993,79 @@ def lm_graph_pair(label: str, graph, initial, cam, sig, huber, solver_cfg, mesh=
             "cg": cg, "values": v_g, "stats": s_g, "launches": g["launches"]}
 
 
+def while_test_nodes(label: str, graph, initial, cam, sig, huber, solver_cfg) -> dict:
+    """The kernel nodes of the LM's and the CG's WHILE bodies (``"lm_step"``
+    and ``"cg"``), from one solve's graph captured twice under
+    ``compiled.recording_nodes``: as the port runs it (each loop test a
+    ``compiled.Test``, which the condition kernel computes) and with each
+    Test's flag computed first in torch, the former test (its two
+    comparisons and their and, then the condition kernel: 4 kernel nodes).
+    The LM's body holds two WHILE tests (the CG's first, before its node,
+    and the LM's next), the CG's body one (its next): a body's tests take
+    4 x tests - (former - now) kernel nodes. Then both graphs replayed in
+    turns (now, former, former, now): host ms per LM iteration of each, and
+    both solves equal bit for bit."""
+    import torch
+
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers.lm import optimize_lm
+
+    plain_while = compiled.while_loop
+
+    def former_while(cond_fun, body_fun, init, *, name="while_loop"):
+        def flag_fun(carry):
+            test = cond_fun(carry)
+            return test.flag() if isinstance(test, compiled.Test) else test
+        return plain_while(flag_fun, body_fun, init, name=name)
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = optimize_lm(graph, initial, cam, *sig, solver_cfg, huber)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    saved = dict(compiled._CACHE)
+    entries, nodes, outs = {}, {}, {}
+    try:
+        for form in ("now", "former"):
+            compiled._CACHE.clear()
+            compiled.while_loop = plain_while if form == "now" else former_while
+            compiled.reset_counts()
+            with compiled.recording_nodes():
+                outs[form] = solve()[0]
+            nodes[form] = {body: compiled.body_nodes.get(body, {}).get(0, {})
+                           for body in ("lm_step", "cg")}
+            (key, entry), = ((k, e) for k, e in compiled._CACHE.items() if k[0] == "lm_solve")
+            entries[form] = entry
+        ms = {"now": [], "former": []}
+        for form in ("now", "former", "former", "now"):
+            compiled._CACHE[key] = entries[form]
+            (values, stats), t = solve()
+            ms[form].append(t / stats.iterations)
+            outs[form + " again"] = (values, stats)
+    finally:
+        compiled.while_loop = plain_while
+        compiled._CACHE.clear()
+        compiled._CACHE.update(saved)
+    same = all(outs[f][1] == outs["now"][1] and _values_equal(outs[f][0], outs["now"][0])
+               for f in ("former", "now again", "former again"))
+    kernels_in = {f: {b: n.get("kernel", 0) for b, n in nodes[f].items()} for f in nodes}
+    tests = {"lm_step": 2, "cg": 1}
+    test_nodes = {b: 4 * n - (kernels_in["former"][b] - kernels_in["now"][b])
+                  for b, n in tests.items()}
+    log(f"  {label}: kernel nodes of the WHILE bodies, the test a Test / the former flag: "
+        f"{kernels_in['now']} / {kernels_in['former']} (all nodes {nodes}); the kernel nodes "
+        f"of the bodies' WHILE tests {test_nodes} for {tests} tests (former: 4 each); host ms "
+        f"per LM iteration, replayed in turns, Test {ms['now']!r}, former {ms['former']!r}; "
+        f"the two graphs' solves equal bit for bit: {same}")
+    return {"checks": {
+        f"LM {label}: one kernel node per WHILE test in the LM's and the CG's bodies "
+        "(counted from the captured bodies)": test_nodes == tests,
+        f"LM {label}: the Test's graph = the former flag's graph, bit for bit": same},
+        "nodes": kernels_in, "ms": ms}
+
+
 def window_graph_check(online_c, cfg) -> dict:
     """The device-resident window step of phase 8's pass (c) on its last
     window: graphed (the "window_graph", "lm_solve" and "window_tail" graphs
@@ -3977,6 +4146,9 @@ def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
                        cam, sig, cfg.noise.stereo_huber_delta,
                        dataclasses.replace(cfg.solver, reduced_solver="cg"))
     checks.update(cg["checks"])
+    checks.update(while_test_nodes("slice, CG reduced solve", to_port(g_np, "cuda"),
+                                   to_port(v_np, "cuda"), cam, sig, cfg.noise.stereo_huber_delta,
+                                   dataclasses.replace(cfg.solver, reduced_solver="cg"))["checks"])
     c1k = one_k["cfg"]
     r1k = lm_graph_pair("1k", one_k["result"].graph, to_port(one_k["initial"], "cuda"),
                         StereoCamera.from_config(c1k.camera, device="cuda"), sig,
@@ -4303,6 +4475,8 @@ def main() -> int:
         and m["ate_rmse_vs_gt"] < ate_odom,
     }
     checks.update(probe["checks"])
+    checks["jacobi_eigh: bit-identical to its plain version on phase 3's SPD 15 x 15, float32 "
+           "and float64"] = jac["same_spd15"]
     profile_solve(result, cfg, "slice")
     log_graphs("phase 4 (slice)")
 
@@ -4514,20 +4688,28 @@ def main() -> int:
                 # in it, its lax.cond, :178, and the CG's while_loop,
                 # uslam_tpu/solvers/schur.py:349), which XLA keeps on the
                 # device; here the handles of a CUDA graph's WHILE and IF
-                # nodes, set from a device flag.
+                # nodes, set from a device flag or a loop's test the kernel
+                # computes.
                 "replaces": "uslam_tpu/solvers/lm.py:229",
                 # Phase 4's solve: once before the loop, twice per LM
                 # iteration (the IF's, the loop's).
                 "launches": launches["graph_cond"],
-                # Against its plain version (a host read of the flag), both
-                # values; the probe's graphs against their eager runs, bit
+                # Against its plain version (a host read of the flag, both
+                # values; Test.flag() read on the host, over a grid of
+                # operands); the probe's graphs against their eager runs, bit
                 # for bit (phase 2's checks).
                 "max_abs_err": probe["max_abs_err"],
                 # Per launch inside a graph; the plain version a host read.
+                # Per launch inside a graph, from a Test of the CG's form;
+                # the plain version Test.flag() and a host read.
                 **{k: probe[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                 "share": probe["bound_ms"] / probe["ms"],
                 "library_ms": None,  # no PyTorch call sets a graph's conditional handle
-                "while_iteration_ms": probe["while_iteration_ms"],
+                # From a flag; an empty kernel node (a one-thread node's
+                # floor); a WHILE iteration whose body only counts, its test
+                # a Test and the former flag; a host read of a flag.
+                **{k: probe[k] for k in ("flag_ms", "empty_ms", "read_ms", "while_iteration_ms",
+                                         "while_iteration_former_ms")},
                 "online_pass_launches": {p["label"]: p["launches"]["graph_cond"]
                                          for p in online["passes"]},
             },

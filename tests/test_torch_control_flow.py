@@ -18,6 +18,8 @@ Tolerances, with their reasons:
   of its norm (the matrix-vector products sum in another order than XLA's).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,9 @@ import pytest
 import torch
 
 from uslam_tpu.solvers import schur as jschur
+from uslam_tpu_torch.config import SolverConfig
 from uslam_tpu_torch.solvers import compiled
+from uslam_tpu_torch.solvers.lm import graph_config
 from uslam_tpu_torch.solvers.schur import _cg_solve
 
 torch.set_num_threads(1)
@@ -38,40 +42,102 @@ def _grow(lib, x, n):
     return x * 2.0 + 0.25 * (x < 2.0) - 0.125, n + 1
 
 
-def _jax_loop(x, limit):
+def _jax_loop(x, limit, bound=50.0, stop=False):
     def body(c):
         return _grow(jnp, *c)
 
-    return jax.lax.while_loop(lambda c: (c[1] < limit) & (c[0][0] < 50.0), body, (x, 0))
+    return jax.lax.while_loop(lambda c: (c[1] < limit) & (bound > c[0][0]) & (not stop), body,
+                              (x, 0))
 
 
-def _port_loop(x, limit):
+def _port_loop(x, limit, form="bool", bound=50.0, stop=False):
+    """The loop with its test as a bool tensor, or as a ``compiled.Test``
+    (``n < limit``, ``bound > x[0]``, not ``stop``), which the condition
+    kernel computes in a graph."""
     def body(c):
         return _grow(torch, *c)
 
     zero = torch.zeros((), dtype=torch.int64)
-    return compiled.while_loop(lambda c: (c[1] < limit) & (c[0][0] < 50.0), body, (x, zero),
-                               name="grow")
+    if form == "bool":
+        assert bound == 50.0 and not stop
+        cond = lambda c: (c[1] < limit) & (c[0][0] < 50.0)   # noqa: E731
+    else:
+        value, halt = torch.tensor(bound, dtype=x.dtype), torch.tensor(stop)
+        cond = lambda c: compiled.Test(c[1], limit, value, c[0][0], halt)   # noqa: E731
+    return compiled.while_loop(cond, body, (x, zero), name="grow")
 
 
 def _x(seed, n=6):
     return np.random.default_rng(seed).uniform(0.1, 3.0, n)
 
 
-@pytest.mark.parametrize("limit, start", [(40, 0.5), (3, 0.5), (40, 60.0), (0, 0.5)],
-                         ids=["stops on x", "stops on the count", "zero trips", "zero limit"])
-def test_while_loop_matches_jax(limit, start):
+# (limit, x[0] at entry, the test's form, its bound, stop at entry)
+WHILE_CASES = {
+    "stops on x": (40, 0.5, "bool", 50.0, False),
+    "stops on the count": (3, 0.5, "bool", 50.0, False),
+    "zero trips": (40, 60.0, "bool", 50.0, False),
+    "zero limit": (0, 0.5, "bool", 50.0, False),
+    "Test, stops on x": (40, 0.5, "Test", 50.0, False),
+    "Test, stops on the count": (3, 0.5, "Test", 50.0, False),
+    "Test, zero limit": (0, 0.5, "Test", 50.0, False),
+    "Test, stop at entry": (40, 0.5, "Test", 50.0, True),
+    "Test, NaN value": (40, 0.5, "Test", float("nan"), False),
+    "Test, NaN threshold": (40, float("nan"), "Test", 50.0, False),
+}
+
+
+@pytest.mark.parametrize("limit, start, form, bound, stop", list(WHILE_CASES.values()),
+                         ids=list(WHILE_CASES))
+def test_while_loop_matches_jax(limit, start, form, bound, stop):
     x = _x(1)
     x[0] = start
     with jax.enable_x64(True):
-        jx, jn = jax.device_get(jax.jit(_jax_loop, static_argnums=1)(jnp.asarray(x), limit))
+        jx, jn = jax.device_get(jax.jit(_jax_loop, static_argnums=(1, 2, 3))(
+            jnp.asarray(x), limit, bound, stop))
     compiled.reset_counts()
-    px, pn = _port_loop(torch.from_numpy(x), limit)
-    assert np.array_equal(px.numpy(), jx) and int(pn) == int(jn)
+    px, pn = _port_loop(torch.from_numpy(x), limit, form, bound, stop)
+    assert np.array_equal(px.numpy(), jx, equal_nan=True) and int(pn) == int(jn)
     assert compiled.runs.get("grow", [0, 0]) == [int(jn), 0]
     assert compiled.reads == {"grow": int(jn) + 1}       # one read per test
-    if start > 50.0 or limit == 0:
-        assert int(pn) == 0 and np.array_equal(px.numpy(), x)
+    if not start < 50.0 or not bound > 0.5 or limit == 0 or stop:
+        assert int(pn) == 0 and np.array_equal(px.numpy(), x, equal_nan=True)
+    else:
+        assert int(pn) == min(limit, 7)   # 0.5 passes 50 after 7 steps
+
+
+LIMITS = (0, 1, 3)
+FLOATS = (float("-inf"), -1.0, 0.0, 1.0, 2.0, float("inf"), float("nan"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_test_flag_equals_the_former_expressions(dtype):
+    """``Test.flag()`` equals the expressions the LM's and the CG's loops
+    tested before (``solvers/lm.py::_active``, ``solvers/schur.py``'s
+    ``going``) on every combination of a small grid: counters below, at
+    and above the limit, values and thresholds with infinities and NaN,
+    converged or not."""
+    for count in range(5):
+        it = torch.tensor(count)
+        for limit in LIMITS:
+            for converged in (False, True):
+                conv = torch.tensor(converged)
+                test = compiled.Test(it, limit, stop=conv)
+                assert torch.equal(test.flag(), (it < limit) & ~conv)
+            for rr, thresh in ((a, b) for a in FLOATS for b in FLOATS):
+                rr_t, th_t = torch.tensor(rr, dtype=dtype), torch.tensor(thresh, dtype=dtype)
+                test = compiled.Test(it, limit, rr_t, th_t)
+                assert torch.equal(test.flag(), (it < limit) & (rr_t > th_t))
+
+
+def test_graph_key_holds_the_loop_limits():
+    """A WHILE test's limit is fixed in its graph, so the solver part of a
+    graph's cache key keeps ``max_iterations`` and ``cg_max_iterations``."""
+    cfg = SolverConfig()
+    key = graph_config(cfg)
+    assert graph_config(dataclasses.replace(cfg, max_iterations=cfg.max_iterations + 1)) != key
+    assert graph_config(dataclasses.replace(
+        cfg, cg_max_iterations=cfg.cg_max_iterations + 1)) != key
+    assert graph_config(dataclasses.replace(cfg, debug_nans=True)) == key
 
 
 def test_nested_while_loop_and_cond_match_jax():
@@ -136,9 +202,17 @@ def _spd(seed, n=12):
     return d @ (m @ m.T + n * np.eye(n)) @ d, rng.normal(size=n)
 
 
-@pytest.mark.parametrize("iters, tol, stop", [(50, 1e-8, "tolerance"), (4, 1e-12, "cg_iters")])
+@pytest.mark.parametrize("iters, tol, stop", [(50, 1e-8, "tolerance"), (4, 1e-12, "cg_iters"),
+                                               (0, 1e-8, "zero iters"),
+                                               (50, 1e-8, "NaN residual")])
 def test_cg_matches_jax(monkeypatch, iters, tol, stop):
+    """The CG's test (``compiled.Test``: it < iters and rr > thresh, its
+    ``flag()`` in the eager blocks) against the JAX loop's: stopping on the
+    tolerance, on the count, at a zero count, and at once on a NaN
+    residual (NaN > thresh is false on both sides)."""
     A, b = _spd(5)
+    if stop == "NaN residual":
+        b[3] = np.nan
     seen = []
     plain_while = jax.lax.while_loop
 
@@ -154,10 +228,12 @@ def test_cg_matches_jax(monkeypatch, iters, tol, stop):
         ref_rr = float(seen[-1][3])
     compiled.reset_counts()
     x = _cg_solve(torch.from_numpy(A), torch.from_numpy(b), iters, tol).numpy()
-    it = compiled.runs["cg"][0]
+    it = compiled.runs.get("cg", [0])[0]
     assert it == ref_it
     if stop == "tolerance":
         assert it < iters
-    else:
+    elif stop == "cg_iters":
         assert it == iters and ref_rr > 1e3 * tol * tol
+    else:
+        assert it == 0 and (np.isnan(ref_rr) if stop == "NaN residual" else iters == 0)
     assert np.linalg.norm(x - ref) <= 1e-12 * np.linalg.norm(ref)

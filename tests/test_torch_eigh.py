@@ -2,7 +2,10 @@
 ``jacobi_eigh`` kernel's plain version ``sym_eigh_plain``, which CPU
 tensors take) against ``jnp.linalg.eigh``, which the JAX package's window
 step calls on the marginal (uslam_tpu/solvers/fixed_lag.py:677), on the
-CPU.
+CPU; and a numpy replay of the kernel's own schedule (csrc/jacobi_eigh.cu:
+one warp per matrix, each round's (c, s) by one lane per pair, then the
+fused pass over 2 x 2 blocks, the stop test's column sums and shuffle tree)
+against ``sym_eigh_plain``, bit for bit.
 
 Inputs, made with numpy from seeds: a random SPD 15 x 15 (the marginal's
 size); an indefinite one with eigenvalues near -1e-9 (what sparsification
@@ -57,6 +60,88 @@ def _case(name: str) -> np.ndarray:
 
 
 
+def _sqrt(x: np.ndarray) -> np.ndarray:
+    """The square root sym_eigh_plain takes on this device: PyTorch's CPU
+    sqrt, which is not correctly rounded on every input (numpy's is; on the
+    card torch.sqrt and the kernel's __fsqrt_rn / __dsqrt_rn both are)."""
+    return torch.sqrt(torch.from_numpy(np.asarray(x))).numpy()
+
+
+def _replay(A: np.ndarray):
+    """``jacobi_eigh``'s schedule in numpy, in A's type, every operation
+    rounded on its own: the lanes of a warp are array elements. Returns
+    (w, V, sweeps) as the kernel writes them."""
+    dt = A.dtype.type
+    n = len(A)
+    m, lanes = n + n % 2, np.arange(32)
+    half = m // 2
+    a = np.zeros((m, m), dt)
+    low = np.tril(A)
+    a[:n, :n] = low + np.tril(A, -1).T                  # the lower triangle, mirrored
+    V = np.eye(m, dtype=dt)
+
+    def squares():
+        """Lane j sums down column j; then the shuffle tree (lane i adds
+        lane i + d, a lane past the warp's end adds its own value)."""
+        sq = a * a
+        s, o = np.zeros(32, dt), np.zeros(32, dt)
+        for i in range(m):
+            s[:m] = s[:m] + sq[i]
+            o[:m] = np.where(np.arange(m) != i, o[:m] + sq[i], o[:m])
+        for d in (16, 8, 4, 2, 1):
+            src = np.where(lanes + d < 32, lanes + d, lanes)
+            s, o = s + s[src], o + o[src]
+        return s[0], o[0]
+
+    eps = dt(np.finfo(dt).eps)
+    total, off = squares()
+    tol2 = (eps * eps) * total
+    stop, sweeps = off <= tol2, 0
+    P, Q = eig.round_robin(m)
+    one, two = dt(1), dt(2)
+    while not stop and sweeps < eig.MAX_SWEEPS:
+        for p, q in zip(P, Q):
+            # One lane per pair: the rotation's chain.
+            app, aqq, apq = a[p, p], a[q, q], a[p, q]
+            theta = (aqq + -app) / (two * apq)
+            sgn = np.where(theta >= 0, one, -one).astype(dt)
+            t = sgn / (np.abs(theta) + _sqrt(theta * theta + one))
+            c = one / _sqrt(t * t + one)
+            s = t * c
+            # A zero a_pq skips the chain: c = 1, s = +0.
+            c, s = np.where(apq == 0, one, c).astype(dt), np.where(apq == 0, dt(0), s).astype(dt)
+            # The fused pass: lane b owns block (k, l) = divmod(b, half).
+            k, l = np.divmod(np.arange(half * half), half)
+            pk, qk, pl, ql = p[k], q[k], p[l], q[l]
+            ck, sk, cl, sl = c[k], s[k], c[l], s[l]
+
+            def rot(c, s, x, y):
+                return c * x + -(s * y), s * x + c * y
+
+            x11, x21 = rot(ck, sk, a[pk, pl], a[qk, pl])      # the rows of pair k
+            x12, x22 = rot(ck, sk, a[pk, ql], a[qk, ql])
+            y11, y12 = rot(cl, sl, x11, x12)                  # then the columns of pair l
+            y21, y22 = rot(cl, sl, x21, x22)
+            diag = k == l
+            y12, y21 = np.where(diag, dt(0), y12), np.where(diag, dt(0), y21)
+            z11, z12 = rot(cl, sl, V[pk, pl], V[pk, ql])
+            z21, z22 = rot(cl, sl, V[qk, pl], V[qk, ql])
+            a[pk, pl], a[pk, ql], a[qk, pl], a[qk, ql] = y11, y12, y21, y22
+            V[pk, pl], V[pk, ql], V[qk, pl], V[qk, ql] = z11, z12, z21, z22
+        sweeps += 1
+        total, off = squares()
+        stop = off <= tol2
+    d = np.diagonal(a)[:n]
+    # Lane j's slot: the entries before it (NaN last), ties in index order.
+    slot = [sum((d[i] < d[j]) or (np.isnan(d[j]) and not np.isnan(d[i]))
+                or (i < j and (d[i] == d[j] or (np.isnan(d[i]) and np.isnan(d[j]))))
+                for i in range(n)) for j in range(n)]
+    w, Vout = np.empty(n, dt), np.empty((n, n), dt)
+    w[slot] = d
+    Vout[:, slot] = V[:n, :n]
+    return w, Vout, sweeps
+
+
 def _psd(w, V):
     return (V * np.clip(w, 0.0, None)) @ V.T
 
@@ -80,6 +165,29 @@ def test_sym_eigh_plain_matches_jax(name, dtype):
     assert np.abs(V64.T @ V64 - np.eye(n)).max() <= RTOL[dtype] * max(n, 1)
     assert np.abs(_psd(w.astype(np.float64), V64)
                   - _psd(w_ref.astype(np.float64), V_ref.astype(np.float64))).max() <= bound
+
+
+def _seeded_spd15() -> np.ndarray:
+    J = np.random.default_rng(11).normal(size=(15, 15))
+    return J @ J.T + 0.1 * np.eye(15)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", [*CASES, "seeded spd15"])
+def test_kernel_schedule_replay_equals_plain(name, dtype):
+    """The kernel's fused two-sided rotation, replayed lane by lane in
+    numpy (every operation rounded in the input's type), equals
+    sym_eigh_plain (rows, then columns, then a_pq = 0) bit for bit: the
+    same rotations, the same stop, the same sort. Upper-triangle junk is
+    ignored by both."""
+    A = (_seeded_spd15() if name == "seeded spd15" else _case(name)).astype(dtype)
+    junk = np.tril(A) + np.triu(np.full_like(A, 7.0), 1)
+    with np.errstate(all="ignore"):
+        w, V, sweeps = _replay(junk)
+    wp, Vp, swp = eig.sym_eigh_plain(torch.from_numpy(A))
+    assert w.dtype == V.dtype == dtype
+    assert sweeps == int(swp) < eig.MAX_SWEEPS
+    assert np.array_equal(w, wp.numpy()) and np.array_equal(V, Vp.numpy())
 
 
 def test_batch_lower_triangle_and_cpu_dispatch():

@@ -9,32 +9,46 @@
 // has fixed control flow, so the port adds the graph's conditional nodes
 // (CUDA 12.4+): a WHILE node, whose body runs while its handle is 1, and an
 // IF node with an else body (CUDA 12.8+). Their handles are set on the device
-// from a 0-d bool tensor by the kernel below, so a graph that loops or
-// branches never waits on the host.
+// by the kernel below, so a graph that loops or branches never waits on the
+// host.
+//
+// What the kernel sets a handle from (`Cond`, laid out as
+// compiled.py's `_CondArgs`): either a 0-d bool (an IF node's predicate),
+// or a loop's test, which the kernel computes itself from the loop's own
+// 0-d tensors: `counter < limit` (int64; `limit` fixed in the graph), and
+// `value > threshold` where given (float32 or float64, NaN > x false, as
+// torch compares), and `!stop` where given (bool). The LM's test is
+// `iterations < max_iterations` and not converged, the CG's `it < iters` and
+// `rr > thresh` (compiled.py `Test`). So a WHILE test is one kernel node,
+// where computing the flag first in torch took three more (the two
+// comparisons and their `&`).
 //
 // The host half (uslam_tpu_torch/solvers/compiled.py) calls, while a graph is
 // being captured on `stream`:
 // - uslam_cond_node: creates the handle in the graph under capture, launches
-//   the kernel on `stream` (so the handle is set from the flag's value at
-//   that point of the graph), adds the conditional node after it and makes
-//   the node the stream's capture dependency; returns the handle and the
-//   node's body graphs (1 for WHILE, 2 for IF: then, else);
+//   the kernel on `stream` (so the handle is set from the operands' values
+//   at that point of the graph), adds the conditional node after it and
+//   makes the node the stream's capture dependency; returns the handle and
+//   the node's body graphs (1 for WHILE, 2 for IF: then, else);
 // - uslam_capture_to / uslam_capture_end: capture a body from a second
 //   stream (cudaStreamBeginCaptureToGraph);
 // - uslam_cond_set: the kernel again, the last node of a WHILE body, which
 //   sets the loop's handle for its next test;
 // - uslam_graph_node_types: the type of every node of a captured body
 //   (cudaGraphNodeType), so a check can show what a body holds (the
-//   collectives' nodes among them).
+//   collectives' nodes among them);
+// - uslam_empty_kernel: a kernel that does nothing, a measuring stick: the
+//   time of one kernel node in a graph, the floor of any one-thread node.
 //
 // Its plain version is a host read of the same flag (the eager primitives of
-// compiled.py). The kernel also counts what it decided into `counts`
-// (int64[2]: value 1, value 0), so the host learns how often each body ran,
-// and so how many launches of the other kernels those bodies hold, in a read
-// it makes anyway.
+// compiled.py; a test's flag computed in torch, `Test.flag`). The kernel
+// also counts what it decided into `counts` (int64[2]: value 1, value 0), so
+// the host learns how often each body ran, and so how many launches of the
+// other kernels those bodies hold, in a read it makes anyway.
 //
-// What bounds it: one byte in and one 8-byte word written, nanoseconds at
-// the card's rates; its time is a launch's latency inside a graph. One
+// What bounds it: a few bytes in (at most an 8-byte counter, two 8-byte
+// values and a bool) and one 8-byte count read and written, nanoseconds at
+// the card's rates; its time is a kernel node's latency inside a graph. One
 // thread does it all.
 
 #include <cuda_runtime.h>
@@ -44,12 +58,52 @@
 
 namespace {
 
-__global__ void set_conditional_kernel(cudaGraphConditionalHandle handle, const bool* flag,
+// A conditional handle's operands; the host's ctypes mirror is
+// compiled.py's `_CondArgs` (same order, natural alignment).
+struct Cond {
+  const bool* flag;           // non-null: the handle is this bool; the rest is unused
+  const long long* counter;   // int64
+  long long limit;
+  const void* value;          // null, or float32 / float64 as value_type says
+  const void* threshold;      // the same type as value
+  const bool* stop;           // null, or a bool that ends the loop when true
+  int value_type;             // 0 float32, 1 float64
+};
+
+// Every operand and both counts are read before any is used, so the loads
+// overlap: one memory latency, where reading the next operand only after
+// the last comparison (or the count after the decision) would chain two or
+// three.
+__global__ void set_conditional_kernel(cudaGraphConditionalHandle handle, Cond c,
                                        long long* counts) {
-  const unsigned int value = *flag ? 1u : 0u;
-  if (counts != nullptr) counts[value ? 0 : 1] += 1;
-  cudaGraphSetConditional(handle, value);
+  long long n_true = 0, n_false = 0, counter = 0;
+  if (counts != nullptr) {
+    n_true = counts[0];
+    n_false = counts[1];
+  }
+  bool flag = false, stop = false, above = true;
+  if (c.flag != nullptr) flag = *c.flag;
+  if (c.counter != nullptr) counter = *c.counter;
+  if (c.value != nullptr) {
+    if (c.value_type == 1) {
+      above = *static_cast<const double*>(c.value) > *static_cast<const double*>(c.threshold);
+    } else {
+      above = *static_cast<const float*>(c.value) > *static_cast<const float*>(c.threshold);
+    }
+  }
+  if (c.stop != nullptr) stop = *c.stop;
+  const bool go = c.flag != nullptr ? flag : (counter < c.limit) & above & !stop;
+  if (counts != nullptr) {
+    if (go) {
+      counts[0] = n_true + 1;
+    } else {
+      counts[1] = n_false + 1;
+    }
+  }
+  cudaGraphSetConditional(handle, go ? 1u : 0u);
 }
+
+__global__ void empty_kernel() {}
 
 cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph, const cudaGraphNode_t** deps,
                          size_t* n_deps) {
@@ -67,15 +121,20 @@ cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph, const cudaGrap
 
 }  // namespace
 
-extern "C" int uslam_cond_set(void* stream, unsigned long long handle, const void* flag,
+extern "C" int uslam_cond_set(void* stream, unsigned long long handle, const void* cond,
                               void* counts) {
   set_conditional_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      handle, static_cast<const bool*>(flag), static_cast<long long*>(counts));
+      handle, *static_cast<const Cond*>(cond), static_cast<long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
-// type: 0 IF (two bodies: then, else), 1 WHILE (one body).
-extern "C" int uslam_cond_node(void* stream_, int type, const void* flag, void* counts,
+extern "C" int uslam_empty_kernel(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// type: 0 IF (two bodies: then, else), 1 WHILE (one body). cond: a Cond.
+extern "C" int uslam_cond_node(void* stream_, int type, const void* cond, void* counts,
                                unsigned long long* handle_out, void** bodies_out) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   cudaGraph_t graph;
@@ -86,7 +145,7 @@ extern "C" int uslam_cond_node(void* stream_, int type, const void* flag, void* 
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int rc = uslam_cond_set(stream, handle, flag, counts);
+  int rc = uslam_cond_set(stream, handle, cond, counts);
   if (rc != 0) return rc;
   err = capture_info(stream, &graph, &deps, &n_deps);  // now: the kernel's node
   if (err != cudaSuccess) return static_cast<int>(err);

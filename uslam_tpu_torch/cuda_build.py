@@ -88,6 +88,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "uslam_preintegrate": [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
         "uslam_jacobi_eigh": [i32, vp, vp, vp, vp, i32, i32, i32, vp],
         "uslam_cond_set": [vp, ctypes.c_ulonglong, vp, vp],
+        "uslam_empty_kernel": [vp],
         "uslam_cond_node": [vp, i32, vp, vp, ctypes.POINTER(ctypes.c_ulonglong),
                             ctypes.POINTER(vp)],
         "uslam_stream_create": [ctypes.POINTER(vp)],

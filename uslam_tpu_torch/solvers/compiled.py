@@ -44,9 +44,13 @@ branch (the CPU, ``debug_nans``, ``graphed=False``). Inside a capture they
 become the graph's conditional nodes (``csrc/graph_cond.cu``): a WHILE
 node, whose body ends by setting the loop's handle from the condition of
 the new carry, and an IF node with an else body, its handle set from the
-predicate. The carry lives in buffers made before the node, which the body
-writes; the branches' results in buffers the then-body makes and the
-else-body writes. A body is captured from a stream of its own per depth of
+predicate. A loop's condition may be a :class:`Test` (a counter below a
+limit, a value above a threshold, a stop flag) instead of a bool tensor:
+the condition kernel then computes it from the carry's own tensors, one
+kernel node per test, and :meth:`Test.flag` is its plain version. The
+carry lives in buffers made before the node, which the body writes; the
+branches' results in buffers the then-body makes and the else-body
+writes. A body is captured from a stream of its own per depth of
 nesting, its allocations in a memory pool of that depth, so nodes nest (the
 CG's loop inside the LM's). While a graph's body is warmed up, each
 loop's body and both branches run once. A capture or instantiation that
@@ -101,6 +105,40 @@ _UNSETTLED: dict = {}  # id(entry) -> an entry replayed since its counts were re
 _RECORD = [False]   # inside recording_nodes()
 _PENDING: list = []  # (name, body index, body graph) of the capture under way, to read
 _IF, _WHILE = 0, 1
+
+
+class Test(NamedTuple):
+    """A loop's test: ``counter < limit``, and ``value > threshold`` where
+    both are given, and ``not stop`` where ``stop`` is given. ``counter``
+    is a 0-d int64 tensor, ``limit`` a Python int (fixed in a graph, as the
+    loop's bound is in its cache key), ``value`` and ``threshold`` 0-d
+    float32 or float64 tensors of one type, ``stop`` a 0-d bool tensor.
+    In a capture the condition kernel computes it on the device; eagerly,
+    and on the CPU, :meth:`flag` does, in torch (NaN > x is false in
+    both)."""
+    counter: torch.Tensor
+    limit: int
+    value: torch.Tensor | None = None
+    threshold: torch.Tensor | None = None
+    stop: torch.Tensor | None = None
+
+    def flag(self) -> torch.Tensor:
+        """The test as a 0-d bool tensor: the kernel's plain version."""
+        go = self.counter < self.limit
+        if self.value is not None:
+            go = go & (self.value > self.threshold)
+        if self.stop is not None:
+            go = go & ~self.stop
+        return go
+
+
+class _CondArgs(ctypes.Structure):
+    """``struct Cond`` of ``csrc/graph_cond.cu``: what the condition kernel
+    sets a handle from (a bool's address, or a :class:`Test`'s operands)."""
+    _fields_ = [("flag", ctypes.c_void_p), ("counter", ctypes.c_void_p),
+                ("limit", ctypes.c_longlong), ("value", ctypes.c_void_p),
+                ("threshold", ctypes.c_void_p), ("stop", ctypes.c_void_p),
+                ("value_type", ctypes.c_int)]
 
 
 class _CondNode(NamedTuple):
@@ -384,9 +422,43 @@ def _flag(flag, what: str) -> torch.Tensor:
     return flag
 
 
+def _scalar(t, dtypes: tuple, device, what: str, part: str) -> int:
+    if not (isinstance(t, torch.Tensor) and t.dtype in dtypes and t.dim() == 0
+            and t.device == device):
+        raise ValueError(f"{what}: the test's {part} must be a 0-d {' or '.join(map(str, dtypes))} "
+                         f"tensor on {device}, got {t!r}")
+    return t.data_ptr()
+
+
+def _cond_args(cond, what: str) -> tuple:
+    """(``_CondArgs`` of ``cond``, its device): a one-element bool tensor
+    on a CUDA device, or a :class:`Test` of 0-d tensors on one."""
+    if not isinstance(cond, Test):
+        flag = _flag(cond, what)
+        return _CondArgs(flag=flag.data_ptr()), flag.device
+    device = cond.counter.device if isinstance(cond.counter, torch.Tensor) else None
+    if device is None or device.type != "cuda":
+        raise ValueError(f"{what}: a test in a graph needs its tensors on a CUDA device, "
+                         f"got {cond!r}")
+    if not isinstance(cond.limit, int) or not -2**63 <= cond.limit < 2**63:
+        raise ValueError(f"{what}: the test's limit must be an int64, got {cond.limit!r}")
+    args = _CondArgs(counter=_scalar(cond.counter, (torch.int64,), device, what, "counter"),
+                     limit=cond.limit)
+    if (cond.value is None) != (cond.threshold is None):
+        raise ValueError(f"{what}: a test needs both value and threshold, or neither")
+    if cond.value is not None:
+        floats = (torch.float32, torch.float64)
+        args.value = _scalar(cond.value, floats, device, what, "value")
+        args.threshold = _scalar(cond.threshold, (cond.value.dtype,), device, what, "threshold")
+        args.value_type = int(cond.value.dtype == torch.float64)
+    if cond.stop is not None:
+        args.stop = _scalar(cond.stop, (torch.bool,), device, what, "stop")
+    return args, device
+
+
 def _read_flag(flag, name: str) -> bool:
     reads[name] = reads.get(name, 0) + 1
-    return bool(flag)
+    return bool(flag.flag() if isinstance(flag, Test) else flag)
 
 
 def _body_stream(device: torch.device, depth: int) -> tuple:
@@ -401,20 +473,22 @@ def _body_stream(device: torch.device, depth: int) -> tuple:
     return _BODIES[key]
 
 
-def _node(kind: int, flag: torch.Tensor, name: str) -> tuple:
+def _node(kind: int, cond, name: str) -> tuple:
     """Add a conditional node after the kernel that sets its handle from
-    ``flag``, on the stream under capture; returns (the node, its body
-    graphs)."""
+    ``cond`` (a bool tensor or a :class:`Test`), on the stream under
+    capture; returns (the node, its body graphs)."""
+    args, device = _cond_args(cond, name)
     lib = load()
-    stream = torch.cuda.current_stream(flag.device)
+    stream = torch.cuda.current_stream(device)
     nodes, all_counts = _NODES[-1]
     if len(nodes) == _MAX_NODES:
         raise ValueError(f"{name}: more than {_MAX_NODES} conditional nodes in one graph")
     counts = all_counts[len(nodes)]
     handle = ctypes.c_ulonglong()
     bodies = (ctypes.c_void_p * 2)()
-    _check(lib, lib.uslam_cond_node(stream.cuda_stream, kind, flag.data_ptr(), counts.data_ptr(),
-                                    ctypes.byref(handle), bodies), f"{name}: adding the node")
+    _check(lib, lib.uslam_cond_node(stream.cuda_stream, kind, ctypes.addressof(args),
+                                    counts.data_ptr(), ctypes.byref(handle), bodies),
+           f"{name}: adding the node")
     launch_counts["graph_cond"] += 1
     node = _CondNode(name, handle.value, counts, [])
     nodes.append(node)
@@ -475,12 +549,14 @@ def _node_types(graph: int) -> dict:
     return out
 
 
-def _set(node: _CondNode, flag: torch.Tensor) -> None:
+def _set(node: _CondNode, cond) -> None:
     """The condition kernel on the stream under capture: ``node``'s handle
-    from ``flag`` (a WHILE body's last node)."""
+    from ``cond``, a bool tensor or a :class:`Test` (a WHILE body's last
+    node)."""
+    args, device = _cond_args(cond, node.name)
     lib = load()
-    stream = torch.cuda.current_stream(flag.device)
-    _check(lib, lib.uslam_cond_set(stream.cuda_stream, node.handle, flag.data_ptr(),
+    stream = torch.cuda.current_stream(device)
+    _check(lib, lib.uslam_cond_set(stream.cuda_stream, node.handle, ctypes.addressof(args),
                                    node.counts.data_ptr()), f"{node.name}: the condition kernel")
     launch_counts["graph_cond"] += 1
 
@@ -504,9 +580,12 @@ def _warming_up() -> bool:
 
 def while_loop(cond_fun: Callable, body_fun: Callable, init, *, name: str = "while_loop"):
     """``jax.lax.while_loop``: ``body_fun`` applied to the carry while
-    ``cond_fun`` of it is true (a one-element bool tensor); ``body_fun``
-    keeps the carry's structure, shapes and dtypes. Eagerly one host read
-    per test; in a capture a WHILE node (no host read)."""
+    ``cond_fun`` of it is true (a one-element bool tensor, or a
+    :class:`Test` of the carry's tensors); ``body_fun`` keeps the carry's
+    structure, shapes and dtypes. Eagerly one host read per test; in a
+    capture a WHILE node (no host read), each test one condition kernel
+    (a bool tensor's flag is computed first, in the kernels that make
+    it)."""
     if not capturing():
         val = init
         while _read_flag(cond_fun(val), name):
@@ -519,14 +598,14 @@ def while_loop(cond_fun: Callable, body_fun: Callable, init, *, name: str = "whi
     struct = _flatten(init, leaves)
     carry_leaves = [leaf.clone() for leaf in leaves]
     carry = _unflatten(struct, iter(carry_leaves))
-    flag = _flag(cond_fun(carry), f"while_loop {name!r}")
-    node, (graph,) = _node(_WHILE, flag, name)
-    with _body(node, graph, flag.device):
+    first = cond_fun(carry)
+    node, (graph,) = _node(_WHILE, first, name)
+    with _body(node, graph, (first.counter if isinstance(first, Test) else first).device):
         new_leaves: list = []
         if _flatten(body_fun(carry), new_leaves) != struct:
             raise ValueError(f"while_loop {name!r}: the body changed its carry's structure")
         _assign(carry_leaves, new_leaves)
-        _set(node, _flag(cond_fun(carry), f"while_loop {name!r}"))
+        _set(node, cond_fun(carry))
     return carry
 
 

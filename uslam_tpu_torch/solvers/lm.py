@@ -25,11 +25,13 @@ linearizes 1 + (accepted steps) times. On the card (no ``debug_nans``, no
 ``group``) the whole solve is one CUDA graph (``"lm_solve"``), keyed by the
 graph's shapes and the solver settings the step reads: the first
 linearization and error, then a WHILE node whose body is one step (its
-re-linearization an IF node, its CG another WHILE node). A solve launches
-one graph and runs no step after the stop; :func:`optimize_lm` reads the
-host once, for the statistics. On the CPU and with ``debug_nans`` the same
-steps run eagerly in blocks of ``block`` (default 1): one host read of
-"active" per block and one of the accept flag per step.
+re-linearization an IF node, its CG another WHILE node) and whose test,
+:func:`_active` as a :class:`~uslam_tpu_torch.solvers.compiled.Test`, the
+condition kernel computes. A solve launches one graph and runs no step
+after the stop; :func:`optimize_lm` reads the host once, for the
+statistics. On the CPU and with ``debug_nans`` the same steps run eagerly
+in blocks of ``block`` (default 1): one host read of "active" per block
+and one of the accept flag per step.
 
 The default linear solver is the landmark Schur complement with velocity
 elimination (:mod:`uslam_tpu_torch.solvers.schur`), with the Cholesky or CG
@@ -269,8 +271,10 @@ def lm_step(state: LMState, p: _Problem, cfg: SolverConfig, check=None) -> LMSta
     return new._replace(lin=lin)
 
 
-def _active(state: LMState, cfg: SolverConfig) -> torch.Tensor:
-    return (state.iterations < cfg.max_iterations) & ~state.converged
+def _active(state: LMState, cfg: SolverConfig) -> compiled.Test:
+    """The loop's test, ``iterations < max_iterations`` and not converged:
+    one condition kernel in a graph, ``.flag()`` eagerly."""
+    return compiled.Test(state.iterations, cfg.max_iterations, stop=state.converged)
 
 
 def _start(p: _Problem, initial: Values, cfg: SolverConfig) -> LMState:
@@ -358,7 +362,7 @@ def _sharded_graph_solve(graph, cam, initial, statics: tuple, cfg: SolverConfig,
         state = compiled.call("lm_block", _graph_block, (graph, cam, state), statics,
                               group=group)
         wait(group, init_error.device, "sharded LM block")
-        if not compiled.read([_active(state, cfg)], name="lm_block")[0]:
+        if not compiled.read([_active(state, cfg).flag()], name="lm_block")[0]:
             return state.values, _stats(init_error, state)
 
 

@@ -286,11 +286,13 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
     Inside a CUDA graph's capture (the LM's) the loop is the JAX package's
     ``lax.while_loop``, a WHILE node
     (:func:`uslam_tpu_torch.solvers.compiled.while_loop`) whose body is one
-    iteration. Eagerly, iterations run in blocks of ``CG_BLOCK``: inside a
-    block an iteration whose stopping test holds leaves the state as it is
-    (``torch.where``), and the host reads the test once per block, so the
-    result is the JAX loop's, bit for bit the same as the graph's, with one
-    sync per block instead of one per iteration. Either way the iterations
+    iteration, its test a :class:`~uslam_tpu_torch.solvers.compiled.Test`
+    that the condition kernel computes (one kernel node). Eagerly,
+    iterations run in blocks of ``CG_BLOCK``: inside a block an iteration
+    whose stopping test holds leaves the state as it is (``torch.where``),
+    and the host reads the test once per block, so the result is the JAX
+    loop's, bit for bit the same as the graph's, with one sync per block
+    instead of one per iteration. Either way the iterations
     run are counted in ``compiled.runs["cg"]``."""
     d_inv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(A), min=1e-20))
     As = A * d_inv[:, None] * d_inv[None, :]
@@ -302,7 +304,7 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
 
     def going(state):
         _, _, _, rr, it = state
-        return (it < iters) & (rr > thresh)
+        return compiled.Test(it, iters, rr, thresh)
 
     def iteration(state):
         x, r, p, rr, it = state
@@ -321,10 +323,10 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int, tol: float) -> torch
     done = 0
     for _ in range(-(-iters // CG_BLOCK)):
         for _ in range(CG_BLOCK):
-            active = going(state)
+            active = going(state).flag()
             state = tuple(torch.where(active, new, old)
                           for new, old in zip(iteration(state), state))
-        go, done = torch.stack([going(state).long(), state[4]]).tolist()
+        go, done = torch.stack([going(state).flag().long(), state[4]]).tolist()
         if not go:
             break
     compiled.count_runs("cg", done)
