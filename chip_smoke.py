@@ -241,7 +241,28 @@ Phases, each of which raises (exit code != 0) on failure:
    the device-resident passes capture nothing on or after the first steady
    keyframe and that their window LM reads nothing on the host.
 
-After each of phases 4-12 and 14 the CUDA graphs it captured and replayed
+15. the JAX repo's examples and its two quality checks, on the card:
+   (a) the port's examples (``EXAMPLE_RUNS``: run_synthetic_torch.py with
+   ``--images`` and on precomputed features, run_online_torch.py on the
+   host path, ``--device-resident`` and ``--fused``; then
+   run_from_rosbag_torch.py on phase 11 (a)'s clip, with its front end's
+   features, written as a reference-style features bag), each through its
+   ``main()`` in this process with the launch counts set to 0 just before
+   and read just after: each launches its kernels, runs on the card, and
+   ends below the DVL odometry's ATE (online within
+   ``ONLINE_ATE_VS_ODOM`` of it); (b) tests/test_oracle_parity.py:71's
+   100-keyframe ATE parity: the float32 ``run_solver`` and the float64
+   polish on the card against the exact float64 oracle
+   (``exact_f64_optimize``), the polished ATE within ``ORACLE_PARITY`` of
+   the oracle's (raises), the float32 canary printed on an ALERT line when
+   it misses (ROADMAP C9); (c) tests/test_fixed_lag_stress.py's 30 s drift
+   stream (``run_stress``) on the host path and device-resident, each held
+   to the JAX test's four bounds (raise), with ``seg_err``, the ATEs, wall
+   seconds, host ms per steady keyframe and the LM's host reads per steady
+   keyframe. ``python3 chip_smoke.py --only-quality`` runs phases 1, 2 and
+   15 alone, the bag made from a features sequence.
+
+After each of phases 4-12, 14 and 15 the CUDA graphs it captured and replayed
 are printed. ``python3 chip_smoke.py --only-compiled`` runs phases 1 and 2 (with the
 probe), the preintegration checks of phase 3, phase 7's solve and graph checks and
 phase 14 on inputs made for it (the slice's front end and solve, the
@@ -254,6 +275,7 @@ nothing of the JAX package ``uslam_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -430,6 +452,42 @@ SURFACE_MAX_FLIPPED_BITS = 2
 SURFACE_FLIPPED_SHARE = 0.01
 SURFACE_WHITENER_RTOL = 1e-9
 NATIVE_WHITENER_RTOL = 1e-12
+# Phase 15 (a): the port's examples (examples/*_torch.py), each run through
+# its main() in this process, with their arguments. Their ATE bounds are
+# PERF.md §2's: offline below the DVL odometry's, online at most
+# ONLINE_ATE_VS_ODOM times it.
+EXAMPLE_RUNS = (
+    ("run_synthetic_torch.py", ("--images", "--duration", "8")),
+    ("run_synthetic_torch.py", ("--duration", "20")),
+    ("run_online_torch.py", ("--duration", "6")),
+    ("run_online_torch.py", ("--duration", "6", "--device-resident")),
+    ("run_online_torch.py", ("--duration", "6", "--fused")),
+)
+# Phase 15 (b): tests/test_oracle_parity.py:71's spec and bounds: the exact
+# float64 oracle below half the initial ATE (:127); the float32 solve's ATE
+# within ORACLE_CANARY of the oracle's (a regression canary, :133; ROADMAP
+# C9: the port's float32 solve misses it on the CPU, so here a miss prints
+# an ALERT line and tests/test_torch_oracle_parity.py is its gate); the
+# polished ATE within ORACLE_PARITY = (factor, metres) of the oracle's
+# (BASELINE's "ATE within 1%", :137).
+ORACLE_SPEC = dict(duration=20.0, keyframe_rate=5.0, num_landmarks=128,
+                   odom_drift_rate=0.05, feature_noise_px=0.3, seed=3)
+ORACLE_CANARY = 3.5
+ORACLE_PARITY = (1.01, 1e-4)
+# Phase 15 (c): tests/test_fixed_lag_stress.py's stream (a survey whose
+# landmarks all enter and leave the window) and its four bounds: enough
+# keyframes, churn (unique landmark ids per second), each of STRESS_SEGMENTS
+# segments within STRESS_SEG_MAX_M of the batch optimum with no runaway
+# trend (the last two segments' mean within STRESS_TREND times the first
+# two's, floored at STRESS_TREND_FLOOR_M), and the window beating the DVL
+# odometry against ground truth.
+STRESS_SECONDS = 30.0
+STRESS_WINDOW = 8
+STRESS_SEGMENTS = 6
+STRESS_SEG_MAX_M = 0.30
+STRESS_TREND = 4.0
+STRESS_TREND_FLOOR_M = 0.02
+STRESS_IDS_PER_SECOND = 2.5
 
 
 def log(msg: str) -> None:
@@ -2801,7 +2859,7 @@ def bag_round_trip(seq, cfg, tmp: Path) -> dict:
         readers_equal[path.name] = sequences_equal(*seqs.values()) and len(
             seqs["C++ scanner"].imu_t) == len(clip.imu_t)
     return {
-        "bag": bag, "written": written, "launches": launches,
+        "bag": bag, "written": written, "launches": launches, "clip": clip,
         "checks": {
             "ingest (a): bag frames equal the uint8 source": frames_equal,
             "ingest (a): bag sensor arrays equal the source": data_equal,
@@ -3089,7 +3147,8 @@ def ingest_phase(seq, cfg) -> dict:
     log("ingest (d): debug_nans and smooth_imu")
     checks.update(debug_nans_and_filters(cfg, c["imu"]))
     log(f"ingest phase: {time.perf_counter() - t_phase!r} s")
-    return {"checks": checks, "bag_launches": a["launches"], "cli_klt_launches": c["launches"]}
+    return {"checks": checks, "bag_launches": a["launches"], "cli_klt_launches": c["launches"],
+            "clip": a["clip"]}
 
 
 # ---- phase 12: multi-device execution ----------------------------------------
@@ -4168,6 +4227,439 @@ def lm_graph_phase(seq, cfg, one_k: dict, survey: dict, online_c) -> dict:
     return {"checks": checks, "slice": slice_, "cg": cg, "1k": r1k, "survey": rs}
 
 
+# ---- phase 15: the JAX repo's examples and its two quality checks -----------
+
+CAMERA_MEAS_DEF = """\
+Header header
+gtsam_vio/FeatureMeasurement[] features
+================================================================================
+MSG: gtsam_vio/FeatureMeasurement
+uint64 id
+float64 u0
+float64 v0
+float64 u1
+float64 v1
+"""
+
+
+def ser_features(t, ids, u0, v0, u1, v1) -> bytes:
+    out = s_header(t) + struct.pack("<I", len(ids))
+    for row in zip(ids, u0, v0, u1, v1):
+        out += struct.pack("<Qdddd", int(row[0]), *(float(x) for x in row[1:]))
+    return out
+
+
+def write_features_bag(seq, path: str) -> None:
+    """``seq``'s four sensor topics and its feature tracks (normalized
+    coordinates, the reference's ``gtsam_vio/CameraMeasurement``) as a
+    reference-style bag at ``path``, on the reference's topics: the input
+    of examples/run_from_rosbag*.py."""
+    from uslam_tpu_torch.io import rosbag
+
+    tp = rosbag.BagTopics()
+    msgs = sensor_messages(seq, tp) + [
+        (tp.features, "gtsam_vio/CameraMeasurement", CAMERA_MEAS_DEF, float(f.t),
+         ser_features(float(f.t), f.ids, f.u0, f.v0, f.u1, f.v1))
+        for f in seq.features]
+    rosbag.write_bag(path, sorted(msgs, key=lambda m: m[3]))
+
+
+def exact_f64_optimize(graph, initial, cam, cfg, max_iters: int = 40):
+    """tests/test_oracle_parity.py:29-68 on the port: an LM whose every step
+    is the exact dense solve of the whole tangent space (numpy float64
+    ``np.linalg.solve``: no Schur complement, no Cholesky jitter, no
+    refinement, no damping floor) with GTSAM's lambda policy and stopping
+    tests. ``graph``, ``initial`` and ``cam`` are float64 on one device,
+    where the linearization, the error and the dense assembly run. Returns
+    (values, error)."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.graph.values import values_retract
+    from uslam_tpu_torch.solvers.dense import assemble_dense_with_landmarks
+    from uslam_tpu_torch.solvers.linearize import graph_error, linearize_graph
+
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    n, m = initial.num_poses, initial.num_landmarks
+    values = initial
+    error = float(graph_error(graph, values, cam, *sig))
+    lam, nu = 1e-5, 10.0
+    for _ in range(max_iters):
+        H, g = assemble_dense_with_landmarks(
+            linearize_graph(graph, values, cam, *sig), graph.stereo.cam_idx,
+            graph.stereo.lm_idx, n, m)
+        H = H.cpu().numpy().astype(np.float64)
+        g = g.cpu().numpy().astype(np.float64)
+        delta = np.linalg.solve(H + (lam + 1e-12) * np.eye(H.shape[0]), g)
+        candidate = values_retract(values, torch.from_numpy(delta).to(values.pose_trans))
+        new_error = float(graph_error(graph, candidate, cam, *sig))
+        if np.isfinite(new_error) and new_error < error:
+            decrease = error - new_error
+            values, error = candidate, new_error
+            if decrease <= 1e-8 or decrease <= 1e-6 * error:
+                break
+            lam, nu = max(lam / 10.0, 0.0), 10.0
+        else:
+            lam = max(lam, 1e-10) * nu
+            nu *= 10.0
+            if lam > 1e8:
+                break
+    return values, error
+
+
+def oracle_solves(device: str) -> dict:
+    """tests/test_oracle_parity.py:71 on the port, on ``device``: the
+    float32 production solve (``run_solver``, ``SolverConfig()``), the
+    float64 polish from it, and the exact float64 oracle on the same graph
+    cast to float64. Returns the four ATEs against ground truth (initial,
+    float32, polished, oracle), the errors, iterations and host seconds of
+    each solve; checks nothing."""
+    import numpy as np
+    import torch
+
+    from uslam_tpu_torch.config import UslamConfig
+    from uslam_tpu_torch.device import cast_tree, synchronize
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.geometry.camera import StereoCamera
+    from uslam_tpu_torch.graph.packing import pack_sequence
+    from uslam_tpu_torch.interop import to_port
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import run_solver
+    from uslam_tpu_torch.solvers.polish import polish_f64
+
+    dev = torch.device(device)
+    seq = generate_synthetic_sequence(SyntheticSpec(**ORACLE_SPEC))
+    cfg = UslamConfig()
+    sig = (cfg.noise.dvl_sigma, cfg.noise.stereo_sigma, cfg.imu.gravity)
+    g_np, v_np, _odom, _ = pack_sequence(seq, cfg)
+    graph, initial = to_port(g_np, dev), to_port(v_np, dev)
+    cam = StereoCamera.from_config(cfg.camera, device=dev)
+    out = {}
+
+    t0 = time.perf_counter()
+    values, stats = run_solver(graph, initial, cam, *sig, cfg.solver)
+    synchronize(dev)
+    out["f32_s"], out["f32_iterations"] = time.perf_counter() - t0, stats.iterations
+    out["f32_converged"], out["f32_error"] = stats.converged, stats.final_error
+    t0 = time.perf_counter()
+    polished, info = polish_f64(graph, values, cam, *sig, cfg.solver, device=dev)
+    synchronize(dev)
+    out["polish_s"], out["polish_iterations"] = time.perf_counter() - t0, info["polish_iterations"]
+    out["polish_error"] = info["polish_final_error"]
+    t0 = time.perf_counter()
+    oracle, out["oracle_error"] = exact_f64_optimize(
+        cast_tree(graph, torch.float64, dev), cast_tree(initial, torch.float64, dev),
+        cast_tree(cam, torch.float64, dev), cfg)
+    synchronize(dev)
+    out["oracle_s"] = time.perf_counter() - t0
+
+    n = min(initial.num_poses, len(seq.gt_pos))
+    gt = np.asarray(seq.gt_pos[:n], np.float64)
+    for name, v in (("init", initial), ("f32", values), ("polished", polished),
+                    ("oracle", oracle)):
+        out[f"ate_{name}"] = ate_rmse(v.pose_trans.detach().cpu().numpy()[:n], gt)
+    return out
+
+
+def stress_keyframes(seq, cfg):
+    """tests/test_fixed_lag.py:13-35 (``feed``) on the port: per keyframe
+    (quat, pos, imu rows since the previous keyframe with dt 0.005 or None,
+    DVL velocity, features triangulated from the keyframe's pose or None)."""
+    import numpy as np
+
+    from uslam_tpu_torch.io.timesync import slice_stream
+    from uslam_tpu_torch.pipeline import AUVSlam
+
+    slam = AUVSlam(cfg, device="cpu")  # its host triangulation alone
+    prev_t = None
+    for i, t in enumerate(seq.dvl_pose_t):
+        sl = slice_stream(seq.imu_t, prev_t if prev_t is not None else -np.inf, float(t))
+        imu = None
+        if sl.stop > sl.start:
+            imu = np.stack([np.concatenate([seq.imu_acc[k], seq.imu_gyro[k], [0.005]])
+                            for k in range(sl.start, sl.stop)])
+        prev_t = float(t)
+        ff = seq.features[i]
+        feats = None
+        if len(ff.ids):
+            feats = slam.get_landmarks(ff.ids, ff.u0, ff.v0, ff.u1, ff.v1,
+                                       seq.dvl_pose_quat[i], seq.dvl_pose_pos[i])
+        yield seq.dvl_pose_quat[i], seq.dvl_pose_pos[i], imu, seq.dvl_twist_vel[i], feats
+
+
+def stress_spec(duration: float) -> dict:
+    """tests/test_fixed_lag_stress.py:27-37: landmark density per second
+    kept at the original 60 s / 320 configuration, short tracks."""
+    return dict(trajectory="survey", duration=duration, num_landmarks=int(320 * duration / 60.0),
+                odom_drift_rate=0.03, feature_noise_px=0.3, max_feature_depth=10.0, seed=6)
+
+
+def run_stress(duration: float, device: str = "cuda", device_resident: bool = False) -> dict:
+    """tests/test_fixed_lag_stress.py:25-81 on the port: the batch solve
+    (``run_sequence``) and ``FixedLagSmoother(window=8,
+    solve_during_fill=False)`` on ``device`` over the same survey stream;
+    raises AssertionError when one of the JAX test's four bounds fails.
+    Returns the figures: segment errors, ATEs, keyframes, unique ids, wall
+    seconds of each side, host ms per steady keyframe and the LM's host
+    reads (``compiled.read``) per steady keyframe."""
+    import numpy as np
+
+    from uslam_tpu_torch.config import UslamConfig
+    from uslam_tpu_torch.device import resolve_device, synchronize
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+    from uslam_tpu_torch.pipeline import run_sequence
+    from uslam_tpu_torch.solvers import compiled
+    from uslam_tpu_torch.solvers.fixed_lag import FixedLagSmoother
+
+    dev = resolve_device(device)
+    cfg = UslamConfig()
+    seq = generate_synthetic_sequence(SyntheticSpec(**stress_spec(duration)))
+
+    t0 = time.perf_counter()
+    traj_batch = run_sequence(seq, cfg, device=dev).trajectory
+    batch_s = time.perf_counter() - t0
+
+    fl = FixedLagSmoother(cfg, window=STRESS_WINDOW, solve_during_fill=False,
+                          device_resident=device_resident, device=dev)
+    seen_ids: set[int] = set()
+    steady_ms, steady_reads = [], 0
+    t0 = time.perf_counter()
+    for k, (quat, pos, imu, dvl, feats) in enumerate(stress_keyframes(seq, cfg)):
+        if feats:
+            seen_ids.update(int(f[0]) for f in feats)
+        reads = sum(compiled.reads.values())
+        tk = time.perf_counter()
+        fl.add_keyframe(quat, pos, np.zeros(3), imu, dvl, feats)
+        synchronize(dev)
+        if k > STRESS_WINDOW:   # after the first marginalization
+            steady_ms.append((time.perf_counter() - tk) * 1e3)
+            steady_reads += sum(compiled.reads.values()) - reads
+    traj_fl = fl.full_trajectory()
+    window_s = time.perf_counter() - t0
+
+    n = min(len(traj_fl), len(traj_batch))
+    seg = n // STRESS_SEGMENTS
+    seg_err = np.array([
+        ate_rmse(traj_fl[i * seg:(i + 1) * seg], traj_batch[i * seg:(i + 1) * seg])
+        for i in range(STRESS_SEGMENTS)])
+    gt = seq.gt_pos[:n]
+    out = {
+        "keyframes": n, "unique_ids": len(seen_ids), "seg_err": seg_err.tolist(),
+        "ate_fl": ate_rmse(traj_fl[:n], gt), "ate_odom": ate_rmse(np.asarray(seq.dvl_pose_pos[:n]), gt),
+        "batch_s": batch_s, "window_s": window_s, "steady": len(steady_ms),
+        "steady_median_ms": float(np.median(steady_ms)),
+        "steady_p90_ms": float(np.percentile(steady_ms, 90)),
+        "reads_per_steady": steady_reads / max(len(steady_ms), 1),
+    }
+    if not n >= int(duration * 5) - 10:
+        raise AssertionError(f"drift stream: {n} keyframes")
+    if not len(seen_ids) > STRESS_IDS_PER_SECOND * duration:
+        raise AssertionError(f"drift stream: {len(seen_ids)} unique landmark ids (no churn)")
+    if not seg_err.max() < STRESS_SEG_MAX_M:
+        raise AssertionError(f"drift stream: segment divergence from batch {seg_err}")
+    if not seg_err[-2:].mean() < STRESS_TREND * max(seg_err[:2].mean(), STRESS_TREND_FLOOR_M):
+        raise AssertionError(f"drift stream: divergence trend {seg_err}")
+    if not out["ate_fl"] < out["ate_odom"]:
+        raise AssertionError(f"drift stream: window ATE {out['ate_fl']} >= odometry "
+                             f"{out['ate_odom']}")
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name: str, sink: list):
+    """``module.name`` replaced while the block runs by a wrapper that
+    appends each call's result to ``sink``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        sink.append(out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def example_in_process(script: str, argv) -> dict:
+    """``python examples/<script> *argv`` through the script's ``main()`` in
+    this process (as ``cli_run_in_process`` runs the command line), with
+    the launch counts set to 0 just before it and read just after. Returns
+    its standard output, wall seconds, launches, and the sequences it
+    generated, the results of its ``run_sequence`` calls and the
+    ``OnlineSlam`` it made."""
+    import io
+    import runpy
+
+    import torch
+
+    import uslam_tpu_torch
+    from uslam_tpu_torch import pipeline
+    from uslam_tpu_torch.frontend import kernels
+    from uslam_tpu_torch.io import synthetic
+    from uslam_tpu_torch.solvers import compiled
+
+    main_fn = runpy.run_path(str(ROOT / "examples" / script), run_name="example")["main"]
+    seqs, results, onlines = [], [], []
+    out = io.StringIO()
+    argv0 = sys.argv
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [script, *argv]
+        with recording(synthetic, "generate_synthetic_sequence", seqs), \
+                recording(pipeline, "run_sequence", results), \
+                recording(uslam_tpu_torch, "OnlineSlam", onlines), \
+                contextlib.redirect_stdout(out):
+            main_fn()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv0
+    wall = time.perf_counter() - t0
+    compiled.settle_launches()
+    launches = dict(kernels.launch_counts)
+    log(f"  $ python examples/{script} {' '.join(Path(a).name if '/' in a else a for a in argv)}"
+        f" (in this process): {wall!r} s; launches {launches}")
+    return {"stdout": out.getvalue(), "wall_s": wall, "launches": launches, "seqs": seqs,
+            "results": results, "onlines": onlines}
+
+
+def examples_on_card(bag_clip) -> dict:
+    """Phase 15 (a): the port's three examples on the card, each with its
+    launch counts (``EXAMPLE_RUNS``, then run_from_rosbag_torch.py on
+    ``bag_clip`` written as a features bag)."""
+    from uslam_tpu_torch.eval.metrics import ate_rmse
+
+    checks, launches = {}, {}
+    front = ("fast_harris", "hamming")
+    back = ("preintegrate", "graph_cond")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (script, argv) in enumerate(EXAMPLE_RUNS):
+            label = " ".join((script,) + argv)
+            if script == "run_synthetic_torch.py":
+                out_dir = Path(tmp) / f"run_{i}"
+                r = example_in_process(script, argv + ("--out", str(out_dir)))
+                (res,), (seq,) = r["results"], r["seqs"]
+                n = res.values.num_poses
+                ate, ate_odom = res.metrics["ate_rmse_vs_gt"], ate_rmse(res.odom_compare,
+                                                                        seq.gt_pos[:n])
+                want = front + back if "--images" in argv else back
+                checks[f"examples: {label} on the card, graph.dot written"] = (
+                    res.values.pose_trans.device.type == "cuda"
+                    and (out_dir / "graph.dot").is_file())
+                checks[f"examples: {label} ATE below the DVL odometry's"] = ate < ate_odom
+                if "--images" not in argv:
+                    checks[f"examples: {label} runs no front end"] = r["launches"][
+                        "fast_harris"] == 0
+            else:
+                r = example_in_process(script, argv)
+                (online,), (seq,) = r["onlines"], r["seqs"]
+                traj = online.trajectory()
+                n = min(len(traj), len(seq.gt_pos))
+                ate = ate_rmse(traj[:n], seq.gt_pos[:n])
+                ate_odom = ate_rmse(seq.dvl_pose_pos[:n], seq.gt_pos[:n])
+                resident = "--device-resident" in argv or "--fused" in argv
+                want = front + back + (("jacobi_eigh",) if resident else ())
+                checks[f"examples: {label} ATE within {ONLINE_ATE_VS_ODOM} x the DVL "
+                       f"odometry's"] = ate <= ONLINE_ATE_VS_ODOM * ate_odom
+                checks[f"examples: {label} every frame a keyframe"] = online.keyframes == len(
+                    seq.image_t)
+            checks[f"examples: {label} launched {want}"] = all(r["launches"][k] > 0 for k in want)
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for line in r["stdout"].splitlines()[-4:]:
+                log(f"    {line}")
+            log(f"    ATE {ate!r} m, DVL odometry {ate_odom!r} m, wall {r['wall_s']!r} s")
+
+        bag = Path(tmp) / "dive_features.bag"
+        write_features_bag(bag_clip, str(bag))
+        label = "run_from_rosbag_torch.py"
+        r = example_in_process(label, (str(bag), "--dot", str(Path(tmp) / "bag.dot")))
+        (res,) = r["results"]
+        n = res.values.num_poses
+        gt = bag_clip.gt_pos[:n]
+        ate, ate_odom = ate_rmse(res.trajectory, gt), ate_rmse(res.odom_compare, gt)
+        checks[f"examples: {label} on a features bag of {len(bag_clip.features)} frames, on the "
+               f"card"] = (res.values.pose_trans.device.type == "cuda"
+                           and n == len(bag_clip.features))
+        checks[f"examples: {label} ATE below the DVL odometry's"] = ate < ate_odom
+        checks[f"examples: {label} launched {back}"] = all(r["launches"][k] > 0 for k in back)
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for line in r["stdout"].splitlines():
+            log(f"    {line}")
+        log(f"    ATE {ate!r} m, DVL odometry {ate_odom!r} m, wall {r['wall_s']!r} s")
+    return {"checks": checks, "launches": launches}
+
+
+def oracle_on_card() -> dict:
+    """Phase 15 (b): tests/test_oracle_parity.py:71 on the card: the
+    float32 solve and the polish on the card, the exact float64 oracle
+    there too (its dense solve numpy's). The sanity and parity bounds
+    raise; the canary prints an ALERT line when it misses (ROADMAP C9)."""
+    o = oracle_solves("cuda")
+    log(f"  float32 run_solver: {o['f32_iterations']} LM iterations, converged "
+        f"{o['f32_converged']}, error {o['f32_error']!r}, {o['f32_s']!r} s; polish: "
+        f"{o['polish_iterations']} iterations, error {o['polish_error']!r}, {o['polish_s']!r} s; "
+        f"oracle: error {o['oracle_error']!r}, {o['oracle_s']!r} s")
+    log(f"  ATE vs ground truth: initial {o['ate_init']!r} m, float32 {o['ate_f32']!r} m, "
+        f"polished {o['ate_polished']!r} m, oracle {o['ate_oracle']!r} m; float32 / oracle "
+        f"{o['ate_f32'] / o['ate_oracle']!r}, polished / oracle "
+        f"{o['ate_polished'] / o['ate_oracle']!r}")
+    if not o["ate_oracle"] < 0.5 * o["ate_init"]:
+        raise AssertionError(f"oracle parity: oracle ATE {o['ate_oracle']} not below half the "
+                             f"initial {o['ate_init']}")
+    factor, metres = ORACLE_PARITY
+    if not o["ate_polished"] <= factor * o["ate_oracle"] + metres:
+        raise AssertionError(f"oracle parity: polished ATE {o['ate_polished']} > {factor} x "
+                             f"oracle {o['ate_oracle']} + {metres}")
+    if not o["ate_f32"] <= ORACLE_CANARY * o["ate_oracle"]:
+        log(f"ALERT: the float32 canary misses on the card: float32 ATE {o['ate_f32']!r} > "
+            f"{ORACLE_CANARY} x oracle {o['ate_oracle']!r} (ROADMAP C9)")
+    return {"checks": {
+        "oracle parity: the float32 solve converged on the card": o["f32_converged"],
+        f"oracle parity: polished ATE within {factor} x the oracle's + {metres} m "
+        "(raises otherwise)": True,
+    }, "oracle": o}
+
+
+def stress_on_card() -> dict:
+    """Phase 15 (c): the 30 s drift stream on the card, on the host path and
+    device-resident, each held to tests/test_fixed_lag_stress.py's four
+    bounds (``run_stress`` raises)."""
+    out = {}
+    for label, resident in (("host path", False), ("device-resident", True)):
+        s = run_stress(STRESS_SECONDS, "cuda", device_resident=resident)
+        out[label] = s
+        log(f"  {label}: {s['keyframes']} keyframes, {s['unique_ids']} unique landmark ids; "
+            f"seg_err {s['seg_err']!r} (< {STRESS_SEG_MAX_M} m); ATE window {s['ate_fl']!r} m vs "
+            f"DVL odometry {s['ate_odom']!r} m; batch solve {s['batch_s']!r} s, stream "
+            f"{s['window_s']!r} s wall; steady keyframe host ms median {s['steady_median_ms']!r}, "
+            f"p90 {s['steady_p90_ms']!r} ({s['steady']} steady); LM host reads per steady "
+            f"keyframe {s['reads_per_steady']!r}")
+    return {"checks": {
+        f"drift stream ({STRESS_SECONDS} s, window {STRESS_WINDOW}), {k}: the JAX test's four "
+        "bounds (raise otherwise)": True for k in out}, "stress": out}
+
+
+def quality_phase(bag_clip) -> dict:
+    """Phase 15: (a) the examples, (b) the oracle parity, (c) the drift
+    stream, all on the card."""
+    t_phase = time.perf_counter()
+    log("quality (a): the port's examples on the card")
+    ex = examples_on_card(bag_clip)
+    log("quality (b): ATE parity against the exact float64 oracle (100 keyframes)")
+    orc = oracle_on_card()
+    log("quality (c): the fixed-lag drift stream")
+    st = stress_on_card()
+    log(f"quality phase: {time.perf_counter() - t_phase!r} s")
+    return {"checks": {**ex["checks"], **orc["checks"], **st["checks"]},
+            "launches": ex["launches"]}
+
+
 def finish_alone(checks: dict, device_name: str) -> int:
     """The end of a run of one phase: its checks, then the last line."""
     import torch
@@ -4189,6 +4681,16 @@ def only_surface(device_name: str) -> int:
 
     checks = surface_phase(UslamConfig())["checks"]
     return finish_alone(checks, device_name)
+
+
+def only_quality(device_name: str) -> int:
+    """``--only-quality``: phase 15 alone, its bag made from a features
+    sequence of ``ONLINE_SECONDS`` in place of phase 11 (a)'s clip."""
+    from uslam_tpu_torch.io.synthetic import SyntheticSpec, generate_synthetic_sequence
+
+    clip = generate_synthetic_sequence(SyntheticSpec(duration=ONLINE_SECONDS,
+                                                     odom_drift_rate=0.05))
+    return finish_alone(quality_phase(clip)["checks"], device_name)
 
 
 def only_parallel(device_name: str, probe_checks: dict) -> int:
@@ -4309,9 +4811,11 @@ def main() -> int:
         return only_compiled(device_name, probe["checks"])
     if sys.argv[1:] == ["--only-surface"]:
         return only_surface(device_name)
+    if sys.argv[1:] == ["--only-quality"]:
+        return only_quality(device_name)
     if sys.argv[1:]:
-        print(f"unknown arguments {sys.argv[1:]}: none, --only-parallel, --only-compiled or "
-              "--only-surface", file=sys.stderr)
+        print(f"unknown arguments {sys.argv[1:]}: none, --only-parallel, --only-compiled, "
+              "--only-surface or --only-quality", file=sys.stderr)
         return 2
 
     # ---- 3. kernels against their plain versions ---------------------------
@@ -4558,6 +5062,11 @@ def main() -> int:
         "checks"])
     log_graphs("phase 14 (the graphed LM)")
 
+    # ---- 15. the examples, the oracle parity and the drift stream ----------
+    quality = quality_phase(ingest["clip"])
+    checks.update(quality["checks"])
+    log_graphs("phase 15 (examples, oracle parity, drift stream)")
+
     checks["neither JAX nor the JAX package imported"] = not any(
         name.split(".")[0] in ("jax", "jaxlib", "uslam_tpu") for name in sys.modules
     )
@@ -4715,6 +5224,9 @@ def main() -> int:
             },
         ]
     }
+    for k in record["kernels"]:
+        # Phase 15 (a): the examples' runs, each from counts set to 0.
+        k["examples_launches"] = quality["launches"][k["name"]]
     print(json.dumps(record))
     print(json.dumps({
         "ok": True,
